@@ -7,23 +7,30 @@ Phases, each printing one line with its elapsed seconds:
 
 1. device  — the card's name and power limit (nvidia-smi); fails without a
    CUDA device.
-2. build   — every kernel in lpr_tpu_torch/csrc built with nvcc (one
-   process per source, all started together), loaded with ctypes; prints
-   nvcc's register / shared-memory / spill report.
+2. build   — every kernel in lpr_tpu_torch/csrc (yolo_front K1, lpsr K2,
+   yolo_mid K3) built with nvcc (one process per source, all started
+   together), loaded with ctypes; prints nvcc's register / shared-memory /
+   spill report.
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes, with the tolerance stated beside it, then both
-   timed with CUDA events (plain, kernel, kernel, plain).
+   the main path's shapes (K1 on frames, K2 on 24 plate crops, K3 on K1's
+   output for 8 frames; the real weights), with the tolerance stated beside
+   it, then both timed with CUDA events (plain, kernel, kernel, plain).
 4. slice   — PlateRecognizer at the production configuration (720p frames,
    detector at 736x1280, bf16, the repo's checkpoints) on 8 frames made
    with numpy from a fixed seed (lpr_tpu_torch.tools.synth): output shapes
-   and finiteness, the K1 launch count, the detector's raw head through K1
-   against the same head through the plain front, and frames/s.
+   and finiteness, the K1 and K2 launch counts, the detector's raw head
+   through K1 against the same head through the plain front, and frames/s.
+   Then the same with PipelineConfig(fused_mid=True): the K3 launch count,
+   the head through K1 + K3 against the head through the plain versions,
+   frames/s.
 5. serve   — InferenceServer(max_batch=8) answers 16 requests; the
    answers must equal the recognizer's own; then stop().
 
-The second-to-last line is one JSON object {"kernels": [...]} (launch
-counts from the serve phase, the main path a user drives); the last line is
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero
+Each path is driven with every launch count set to 0 just before it and
+read just after.  The second-to-last line is one JSON object
+{"kernels": [...]} (launch counts of K1 and K2 from the serve phase, the
+main path a user drives, of K3 from the fused_mid slice); the last line
+is {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  A watchdog turns a hang into a failing exit with a
 traceback.
 """
@@ -36,9 +43,10 @@ import subprocess
 import sys
 import time
 
-# A whole run, the nvcc build included, measured 21-22 s on an H100; the
-# watchdog turns a hang into a failing exit at about three times that.
-WATCHDOG_S = 60
+# A whole run, the three nvcc builds (~27 s, all started together)
+# included, measured 44 s on an H100; the watchdog turns a hang into a
+# failing exit at about three times that.
+WATCHDOG_S = 135
 SEED = 0
 BATCH = 8
 FRAME_HW = (720, 1280)
@@ -51,11 +59,17 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 # K1 vs its plain version: lpr_tpu_torch.kernels.yolo_front.TOL_* (0.03 +
 # two bf16 ulps elementwise over the whole tensor, interior mean 0.004).
-# Detector raw head through K1 vs through the plain front (bf16): K1's
-# rare one-ulp differences on layer 2 travel through 21 more bf16 layers;
-# logits reach ~20 in magnitude.
+# K2 vs its plain version: lpr_tpu_torch.kernels.lpsr.TOL_MAX / TOL_MEAN
+# (bf16: max 2e-2, mean 1e-3 on the sigmoid output).  K3 vs its plain
+# version: lpr_tpu_torch.kernels.yolo_mid.TOL_* (0.05 + two bf16 ulps
+# elementwise, interior mean 0.006).
+# Detector raw head through K1 (and K3) vs through the plain versions
+# (bf16): the kernels' rare one-ulp differences travel through the later
+# bf16 layers; logits reach ~20 in magnitude.
 HEAD_MAX_ERR = 0.5
 HEAD_MEAN_ERR = 0.05
+LPSR_N = BATCH * 3      # plate crops per step: batch x max_plates
+LPSR_HW = (32, 192)
 
 _T0 = time.perf_counter()
 
@@ -109,15 +123,42 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     from lpr_tpu_torch.kernels import _build
+    from lpr_tpu_torch.kernels import lpsr as kl
     from lpr_tpu_torch.kernels import yolo_front as kf
+    from lpr_tpu_torch.kernels import yolo_mid as km
 
     t = time.perf_counter()
     libs = _build.build()
     for name, lib in libs.items():
         for line in lib.ptxas_log:
             print(f"nvcc[{name}]: {line}", flush=True)
-    smem = libs["yolo_front"].cdll.lpr_yolo_front_smem_bytes()
-    phase("build", t, f"; {sorted(libs)}; yolo_front dynamic smem {smem} B")
+    if sorted(libs) != ["lpsr", "yolo_front", "yolo_mid"]:
+        raise AssertionError(f"built {sorted(libs)}")
+    smem = {n: getattr(libs[n].cdll, f"lpr_{n}_smem_bytes")() for n in libs}
+    phase("build", t, f"; {sorted(libs)}; dynamic smem per block {smem} B")
+
+    def counts_to_zero():
+        kf.yolo_front.launches = 0
+        kl.lpsr_fused.launches = 0
+        km.yolo_mid.launches = 0
+
+    def counts():
+        return {"yolo_front": kf.yolo_front.launches,
+                "lpsr": kl.lpsr_fused.launches,
+                "yolo_mid": km.yolo_mid.launches}
+
+    def timed(kernel, plain, iters):
+        """(kernel ms, plain ms, runs) over turns plain, kernel, kernel,
+        plain; each the best of its two runs."""
+        runs = [time_ms(plain, iters), time_ms(kernel, iters),
+                time_ms(kernel, iters), time_ms(plain, iters)]
+        return min(runs[1:3]), min(runs[0], runs[3]), runs
+
+    def bound(work):
+        flops, nbytes = work
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
 
     # ---- 3. kernels -----------------------------------------------------
     from lpr_tpu_torch.models.lpsr import load_lpsr
@@ -125,6 +166,10 @@ def main() -> int:
                                            load_plate_detector)
 
     t = time.perf_counter()
+    kernels = []
+    iters = 20
+
+    # K1 — the detector front, on frames.
     plate = load_plate_detector(CKPT_PLATE).to(torch.bfloat16)
     packed = kf.front_pack(plate)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -147,29 +192,88 @@ def main() -> int:
         raise AssertionError("K1 disagrees with its plain version")
     x8 = torch.rand((BATCH, *DET_HW, 3), generator=gen, device="cuda"
                     ).to(torch.bfloat16)
-    iters = 20
-    plain_a = time_ms(lambda: kf.front_plain(x8, packed), iters)
-    k_a = time_ms(lambda: kf.yolo_front(x8, packed), iters)
-    k_b = time_ms(lambda: kf.yolo_front(x8, packed), iters)
-    plain_b = time_ms(lambda: kf.front_plain(x8, packed), iters)
-    k_ms, plain_ms = min(k_a, k_b), min(plain_a, plain_b)
-    flops, nbytes = kf.front_work(BATCH, *DET_HW)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    k_ms, plain_ms, runs = timed(lambda: kf.yolo_front(x8, packed),
+                                 lambda: kf.front_plain(x8, packed), iters)
+    bound_ms, bound_by = bound(kf.front_work(BATCH, *DET_HW))
     print(f"K1 timing at ({BATCH}, {DET_HW[0]}, {DET_HW[1]}, 3) on {card}: "
-          f"kernel {k_ms:.4f} ms (runs {k_a:.4f}, {k_b:.4f}), plain "
-          f"{plain_ms:.4f} ms (runs {plain_a:.4f}, {plain_b:.4f}), bound "
-          f"{bound_ms:.4f} ms ({bound_by}; {flops} FLOP, {nbytes} B)",
+          f"kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs plain, "
+          f"kernel, kernel, plain {runs}), bound {bound_ms:.4f} ms "
+          f"({bound_by}; {kf.front_work(BATCH, *DET_HW)} FLOP, B)",
           flush=True)
-    kernels = [{
+    kernels.append({
         "name": "yolo_front", "route": "cuda",
         "source": "lpr_tpu_torch/csrc/yolo_front.cu",
         "replaces": "lpr_tpu/ops/pallas/yolo_front.py:461",
         "launches": None, "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-    }]
+    })
+
+    # K2 — the LPSR stage, on the main path's 24 plate crops.
+    lpsr_packed = kl.lpsr_pack(load_lpsr(CKPT_LPSR).to(torch.bfloat16))
+    crops = torch.rand((LPSR_N, *LPSR_HW, 3), generator=gen, device="cuda"
+                       ).to(torch.bfloat16)
+    got = kl.lpsr_fused(crops, lpsr_packed)
+    ref = kl.lpsr_plain(crops, lpsr_packed)
+    torch.cuda.synchronize()
+    max_err, mean_err = kl.lpsr_errors(got, ref)
+    tol_max, tol_mean = kl.TOL_MAX[torch.bfloat16], kl.TOL_MEAN[torch.bfloat16]
+    print(f"K2 lpsr_fused vs lpsr_plain ({LPSR_N}, {LPSR_HW[0]}, "
+          f"{LPSR_HW[1]}, 3) bf16: max_abs_err {max_err} (< {tol_max}), "
+          f"mean {mean_err} (< {tol_mean}), finite "
+          f"{bool(torch.isfinite(got).all())}", flush=True)
+    if not (max_err < tol_max and mean_err < tol_mean
+            and torch.isfinite(got).all()):
+        raise AssertionError("K2 disagrees with its plain version")
+    k_ms, plain_ms, runs = timed(lambda: kl.lpsr_fused(crops, lpsr_packed),
+                                 lambda: kl.lpsr_plain(crops, lpsr_packed),
+                                 iters)
+    work = kl.lpsr_work(LPSR_N, *LPSR_HW)
+    bound_ms, bound_by = bound(work)
+    print(f"K2 timing at ({LPSR_N}, {LPSR_HW[0]}, {LPSR_HW[1]}, 3) on "
+          f"{card}: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs "
+          f"{runs}), bound {bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)",
+          flush=True)
+    kernels.append({
+        "name": "lpsr", "route": "cuda",
+        "source": "lpr_tpu_torch/csrc/lpsr.cu",
+        "replaces": "lpr_tpu/ops/pallas/lpsr_kernel.py:235",
+        "launches": None, "max_abs_err": max_err, "ms": k_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    })
+
+    # K3 — detector layers 3-4, on K1's real output for 8 frames.
+    mid_packed = km.mid_pack(plate)
+    y8 = kf.yolo_front(x8, packed)
+    got = km.yolo_mid(y8, mid_packed)
+    ref = km.mid_plain(y8, mid_packed)
+    torch.cuda.synchronize()
+    max_err, ratio, mean_int = km.mid_errors(got, ref)
+    diff = (got.float() - ref.float()).abs()
+    print(f"K3 yolo_mid vs mid_plain on K1's output {tuple(y8.shape)} "
+          f"bf16: max_abs_err {max_err}, max err/(abs {km.TOL_ABS} + rel "
+          f"{km.TOL_REL}) {ratio} (< 1), interior mean {mean_int} "
+          f"(< {km.TOL_INTERIOR_MEAN}), {int((diff > 0).sum().item())} of "
+          f"{got.numel()} differ, max |plain| "
+          f"{ref.float().abs().max().item()}", flush=True)
+    if not (ratio < 1.0 and mean_int < km.TOL_INTERIOR_MEAN):
+        raise AssertionError("K3 disagrees with its plain version")
+    k_ms, plain_ms, runs = timed(lambda: km.yolo_mid(y8, mid_packed),
+                                 lambda: km.mid_plain(y8, mid_packed), iters)
+    work = km.mid_work(BATCH, *y8.shape[1:3])
+    bound_ms, bound_by = bound(work)
+    print(f"K3 timing at {tuple(y8.shape)} on {card}: kernel {k_ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms (runs {runs}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)", flush=True)
+    kernels.append({
+        "name": "yolo_mid", "route": "cuda",
+        "source": "lpr_tpu_torch/csrc/yolo_mid.cu",
+        "replaces": "lpr_tpu/ops/pallas/yolo_mid.py:273",
+        "launches": None, "max_abs_err": max_err, "ms": k_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    })
     print("kernels: " + ", ".join(
         f"{k['name']} ({k['route']}, {k['source']}, replaces "
         f"{k['replaces']})" for k in kernels), flush=True)
@@ -183,17 +287,8 @@ def main() -> int:
 
     t = time.perf_counter()
     char, names = load_char_ocr_npz(CKPT_CHAR)
-    rec = PlateRecognizer(plate, char, load_lpsr(CKPT_LPSR),
-                          PipelineConfig(det_hw=DET_HW, dtype=torch.bfloat16),
-                          char_names=names)
     frames = synth_frames(BATCH, FRAME_HW, SEED)
-    kf.yolo_front.launches = 0
-    out = rec.step_raw(frames)
-    torch.cuda.synchronize()
-    slice_launches = kf.yolo_front.launches
-    if slice_launches < 1:
-        raise AssertionError("the slice did not launch K1")
-    P = rec.cfg.max_plates
+    P = PipelineConfig().max_plates
     expect = {"plate_boxes": (BATCH, P, 4), "plate_scores": (BATCH, P),
               "plate_classes": (BATCH, P), "plate_valid": (BATCH, P),
               "is_long": (BATCH, P), "sr": (BATCH, P, 32, 192, 1)}
@@ -203,62 +298,109 @@ def main() -> int:
                        f"{grp}.classes": (BATCH, P, 16),
                        f"{grp}.valid": (BATCH, P, 16),
                        f"{grp}.count": (BATCH, P)})
-    flat = {}
-    for k, v in out.items():
-        if isinstance(v, dict):
-            flat.update({f"{k}.{kk}": vv for kk, vv in v.items()})
-        else:
-            flat[k] = v
-    if sorted(flat) != sorted(expect):
-        raise AssertionError(f"step outputs {sorted(flat)}")
-    for k, shape in expect.items():
-        v = flat[k]
-        if tuple(v.shape) != shape:
-            raise AssertionError(f"{k}: shape {tuple(v.shape)} != {shape}")
-        if v.is_floating_point() and not torch.isfinite(v).all():
-            raise AssertionError(f"{k}: non-finite values")
-    with torch.inference_mode():
-        x = torch.as_tensor(frames, device="cuda").to(torch.bfloat16) / 255.0
-        lb = letterbox(x, DET_HW, fill=0.0)[0].contiguous()
-        raw_k = rec.plate_model(lb, front=packed)
-        raw_p = rec.plate_model.forward_from(kf.front_plain(lb, packed), 3)
-    head_max = max((a.float() - b.float()).abs().max().item()
-                   for a, b in zip(raw_k, raw_p))
-    head_mean = max((a.float() - b.float()).abs().mean().item()
-                    for a, b in zip(raw_k, raw_p))
-    print(f"detector raw head, K1 vs plain front: max_abs_err {head_max} "
-          f"(< {HEAD_MAX_ERR}), worst level mean {head_mean} "
-          f"(< {HEAD_MEAN_ERR})", flush=True)
-    if not (head_max < HEAD_MAX_ERR and head_mean < HEAD_MEAN_ERR):
-        raise AssertionError("detector head through K1 disagrees")
+
+    def check_outputs(out):
+        flat = {}
+        for k, v in out.items():
+            if isinstance(v, dict):
+                flat.update({f"{k}.{kk}": vv for kk, vv in v.items()})
+            else:
+                flat[k] = v
+        if sorted(flat) != sorted(expect):
+            raise AssertionError(f"step outputs {sorted(flat)}")
+        for k, shape in expect.items():
+            v = flat[k]
+            if tuple(v.shape) != shape:
+                raise AssertionError(f"{k}: shape {tuple(v.shape)} != "
+                                     f"{shape}")
+            if v.is_floating_point() and not torch.isfinite(v).all():
+                raise AssertionError(f"{k}: non-finite values")
+
+    def check_head(rec, plain_head, label):
+        with torch.inference_mode():
+            x = torch.as_tensor(frames, device="cuda").to(torch.bfloat16)
+            lb = letterbox(x / 255.0, DET_HW, fill=0.0)[0].contiguous()
+            raw_k = rec.plate_model(lb, front=rec._front, mid=rec._mid)
+            raw_p = plain_head(rec, lb)
+        head_max = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(raw_k, raw_p))
+        head_mean = max((a.float() - b.float()).abs().mean().item()
+                        for a, b in zip(raw_k, raw_p))
+        print(f"detector raw head, {label}: max_abs_err {head_max} "
+              f"(< {HEAD_MAX_ERR}), worst level mean {head_mean} "
+              f"(< {HEAD_MEAN_ERR})", flush=True)
+        if not (head_max < HEAD_MAX_ERR and head_mean < HEAD_MEAN_ERR):
+            raise AssertionError(f"detector head disagrees: {label}")
+
+    def throughput(rec, label):
+        steps, rounds = 5, 3
+        for _ in range(2):
+            rec.step_raw(frames)
+        torch.cuda.synchronize()
+        step_ms = []
+        for _ in range(rounds):
+            t_run = time.perf_counter()
+            for _ in range(steps):
+                rec.step_raw(frames)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t_run) / steps)
+        best = min(step_ms)
+        print(f"slice throughput, {label}: {1e3 * BATCH / best:.3f} frames/s"
+              f" at the best of {rounds} rounds of {steps} steps (ms/step "
+              f"{step_ms}; batch {BATCH}, 720p, det {DET_HW[0]}x{DET_HW[1]},"
+              f" bf16; host clock around synchronize) on {card}", flush=True)
+
+    # The default configuration: K1 and K2.
+    rec = PlateRecognizer(plate, char, load_lpsr(CKPT_LPSR),
+                          PipelineConfig(det_hw=DET_HW, dtype=torch.bfloat16),
+                          char_names=names)
+    counts_to_zero()
+    out = rec.step_raw(frames)
+    torch.cuda.synchronize()
+    slice_counts = counts()
+    if slice_counts["yolo_front"] < 1 or slice_counts["lpsr"] < 1:
+        raise AssertionError(f"the slice did not launch K1 and K2: "
+                             f"{slice_counts}")
+    check_outputs(out)
+    check_head(rec, lambda r, lb: r.plate_model.forward_from(
+        kf.front_plain(lb, r._front), 3), "K1 vs plain front")
     results = rec.assemble(to_host(out))
     n_plates = sum(len(r) for r in results)
     print(f"slice: {n_plates} plates in {BATCH} frames; first texts "
-          f"{[p['text_sr'] for r in results for p in r][:6]}", flush=True)
-    steps, rounds = 5, 3
-    for _ in range(2):
-        rec.step_raw(frames)
+          f"{[p['text_sr'] for r in results for p in r][:6]}; launches "
+          f"{slice_counts}", flush=True)
+    throughput(rec, "default (K1, K2)")
+
+    # fused_mid: K1, K3 and K2.
+    rec_mid = PlateRecognizer(
+        plate, char, load_lpsr(CKPT_LPSR),
+        PipelineConfig(det_hw=DET_HW, dtype=torch.bfloat16, fused_mid=True),
+        char_names=names)
+    counts_to_zero()
+    out_mid = rec_mid.step_raw(frames)
     torch.cuda.synchronize()
-    step_ms = []
-    for _ in range(rounds):
-        t_run = time.perf_counter()
-        for _ in range(steps):
-            rec.step_raw(frames)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t_run) / steps)
-    best = min(step_ms)
-    print(f"slice throughput: {1e3 * BATCH / best:.3f} frames/s at the best "
-          f"of {rounds} rounds of {steps} steps (ms/step {step_ms}; batch "
-          f"{BATCH}, 720p, det {DET_HW[0]}x{DET_HW[1]}, bf16; host clock "
-          f"around synchronize) on {card}", flush=True)
-    phase("slice", t, f"; K1 launches {slice_launches}")
+    mid_counts = counts()
+    if min(mid_counts.values()) < 1:
+        raise AssertionError(f"the fused_mid slice did not launch every "
+                             f"kernel: {mid_counts}")
+    check_outputs(out_mid)
+    check_head(rec_mid, lambda r, lb: r.plate_model.forward_from(
+        km.mid_plain(kf.front_plain(lb, r._front), r._mid), 5),
+        "K1 + K3 vs plain front + plain mid")
+    results_mid = rec_mid.assemble(to_host(out_mid))
+    print(f"slice fused_mid: {sum(len(r) for r in results_mid)} plates; "
+          f"first texts {[p['text_sr'] for r in results_mid for p in r][:6]}"
+          f"; launches {mid_counts}", flush=True)
+    throughput(rec_mid, "fused_mid (K1, K3, K2)")
+    phase("slice", t, f"; launches default {slice_counts}, fused_mid "
+          f"{mid_counts}")
 
     # ---- 5. serve -------------------------------------------------------
     from lpr_tpu_torch.serve.server import InferenceServer, ServeConfig
 
     t = time.perf_counter()
     requests = np.concatenate([frames, frames])
-    kf.yolo_front.launches = 0
+    counts_to_zero()
     srv = InferenceServer(rec, ServeConfig(max_batch=BATCH,
                                            max_delay_ms=20.0)).start()
     try:
@@ -266,20 +408,22 @@ def main() -> int:
         served = [f.result(timeout=300) for f in futs]
     finally:
         srv.stop(timeout=60)
-    serve_launches = kf.yolo_front.launches
+    serve_counts = counts()
     print(f"serve stats: {json.dumps(srv.stats.summary())}", flush=True)
-    if serve_launches < 1:
-        raise AssertionError("the server did not launch K1")
+    if serve_counts["yolo_front"] < 1 or serve_counts["lpsr"] < 1:
+        raise AssertionError(f"the server did not launch K1 and K2: "
+                             f"{serve_counts}")
 
     def key(res):
         return [(p["class_id"], p["text"], p["text_sr"]) for p in res]
 
     if [key(r) for r in served] != [key(r) for r in results + results]:
         raise AssertionError("served results differ from recognize()")
-    phase("serve", t, f"; {len(served)} requests, K1 launches "
-          f"{serve_launches}")
+    phase("serve", t, f"; {len(served)} requests, launches {serve_counts}")
 
-    kernels[0]["launches"] = serve_launches
+    kernels[0]["launches"] = serve_counts["yolo_front"]
+    kernels[1]["launches"] = serve_counts["lpsr"]
+    kernels[2]["launches"] = mid_counts["yolo_mid"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

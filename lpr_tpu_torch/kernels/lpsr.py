@@ -1,0 +1,321 @@
+"""K2: the whole LPSR forward as one kernel, the port of
+``lpr_tpu/ops/pallas/lpsr_kernel.py`` ``lpsr_pallas``.
+
+- :func:`lpsr_pack` — gathers an :class:`~lpr_tpu_torch.models.lpsr.LPSR`
+  module's weights into one packed float32 buffer plus an offset table,
+  with each RDB's residual scale ``alpha`` folded into its ``lff`` weight
+  and bias (as ``lpsr_pallas`` folds it).
+- :func:`lpsr_fused` — the wrapper.  A CUDA tensor goes to the kernel in
+  ``lpr_tpu_torch/csrc/lpsr.cu`` (built with nvcc, loaded with ctypes) or
+  raises; only a CPU tensor takes the plain version.
+- :func:`lpsr_plain` — the same function in plain PyTorch, reading the same
+  packed buffer and rounding where the kernel rounds: every convolution
+  sums in float32 over the stored inputs, adds its bias in float32 and
+  stores in the activation dtype; residual adds, ReLU and the attention
+  products work on stored values; the CA mean and MLP and both sigmoids
+  are float32 (``_forward_block``, ``lpsr_kernel.py:131-196``).  In float32
+  it is ``LPSR.forward`` up to float32 rounding.
+
+The TPU kernel's k-major (un)shuffle channel order, its weight permutation
+and its image blocks are TPU layout, not part of the function: the kernel
+indexes PyTorch's own order, unshuffled channel ``c*4 + i*2 + j``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+# How close the kernel must come to lpsr_plain.  Both round at the same
+# points, so they differ only where float32 sums taken in another order
+# round to neighbouring values of the activation dtype, and such a one-ulp
+# flip travels through the ~35 later layers.  The output is a sigmoid in
+# (0, 1).  In bf16: the JAX kernel test holds a bf16 computation to 2e-2 of
+# the float32 reference (tests/test_pallas_kernel.py); two bf16
+# computations that each meet it are within 4e-2 of each other (measured on
+# an H100 at (24, 32, 192, 3), real weights: max 2.03e-2, mean 4.1e-4).  In
+# float32: 1e-4.
+TOL_MAX = {torch.bfloat16: 4e-2, torch.float32: 1e-4}
+TOL_MEAN = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+
+# The packed entries, in the kernel's order (csrc/lpsr.cu enum W_*).
+# Convolution weights are HWIO (kh, kw, cin, cout), depthwise ones
+# (kh, kw, c), dense layers (in, out).
+_AE = ("conv_in.w",
+       "enc0.dw.w", "enc0.dw.b", "enc0.pw.w", "enc0.pw.b",
+       "enc1.dw.w", "enc1.dw.b", "enc1.pw.w", "enc1.pw.b",
+       "dec0.dw.w", "dec0.dw.b", "dec0.pw.w", "dec0.pw.b",
+       "dec1.dw.w", "dec1.dw.b", "dec1.pw.w", "dec1.pw.b",
+       "conv_out.w")
+_CSAR = ("in0.w", "in0.b", "in1.w", "in1.b", "fc1.w", "fc1.b", "fc2.w",
+         "fc2.b", "sa1.w", "sa1.b", "sa2.w", "sa2.b", "out.w", "out.b")
+PACK_KEYS: Tuple[str, ...] = (
+    tuple(f"ae.{k}" for k in _AE)
+    + ("sf1.w", "sf1.b", "sf2.w", "sf2.b")
+    + tuple(f"rdb{r}.{k}" for r in range(2)
+            for k in ([f"l{i}.{p}" for i in range(4) for p in "wb"]
+                      + ["lff.w", "lff.b"]))
+    + tuple(f"csar.{k}" for k in _CSAR)
+    + ("gff0.w", "gff0.b", "gff1.w", "gff1.b", "final.w", "final.b"))
+
+
+class LpsrPacked:
+    """One float32 buffer holding every LPSR weight, and the offset (in
+    floats, a multiple of 4) and shape of each entry of
+    :data:`PACK_KEYS`."""
+
+    def __init__(self, buf: Tensor, entries: Dict[str, Tuple[int, tuple]]):
+        self.buf = buf
+        self.entries = entries
+        self.offsets = tuple(entries[k][0] for k in PACK_KEYS)
+
+    def __getitem__(self, key: str) -> Tensor:
+        off, shape = self.entries[key]
+        return self.buf[off:off + math.prod(shape)].view(shape)
+
+
+def lpsr_pack(model) -> LpsrPacked:
+    """Pack a :class:`~lpr_tpu_torch.models.lpsr.LPSR` (the production
+    configuration: 3 -> 1 channels, 32 features, growth 16, 4 blocks of 4
+    layers) into an :class:`LpsrPacked` on the model's device, holding the
+    model's own values (a bf16 model packs bf16-representable weights);
+    ``alpha`` is folded into each RDB's ``lff``.  Raises ValueError on
+    another configuration."""
+    cfg = model.cfg
+    if (cfg.num_channels, cfg.num_features, cfg.growth_rate, cfg.num_blocks,
+            cfg.num_layers, cfg.out_channels, cfg.expansion,
+            cfg.ae_kernel) != (3, 32, 16, 4, 4, 1, 4, 5):
+        raise ValueError(f"the LPSR kernel takes the production "
+                         f"configuration, not {cfg}")
+
+    def hwio(conv):
+        return conv.w.float().permute(2, 3, 1, 0)
+
+    def dw(conv):                                   # (C, 1, k, k) -> (k, k, C)
+        return conv.w.float()[:, 0].permute(1, 2, 0)
+
+    def mat(conv):                                  # 1x1 -> (cin, cout)
+        return hwio(conv)[0, 0]
+
+    def b(conv):
+        return conv.b.float()
+
+    ae = model.auto_encoder
+    t: List[Tuple[str, Tensor]] = [("ae.conv_in.w", hwio(ae.conv_in))]
+    for name in ("enc0", "enc1", "dec0", "dec1"):
+        blk = getattr(ae, name)
+        t += [(f"ae.{name}.dw.w", dw(blk.dw)), (f"ae.{name}.dw.b", b(blk.dw)),
+              (f"ae.{name}.pw.w", mat(blk.pw)), (f"ae.{name}.pw.b", b(blk.pw))]
+    t.append(("ae.conv_out.w", hwio(ae.conv_out)))
+    t += [("sf1.w", hwio(model.shallowF1)), ("sf1.b", b(model.shallowF1)),
+          ("sf2.w", hwio(model.shallowF2)), ("sf2.b", b(model.shallowF2))]
+    for r, rdb in enumerate(model.rdbs):
+        for i, conv in enumerate(rdb.layers):
+            t += [(f"rdb{r}.l{i}.w", hwio(conv)), (f"rdb{r}.l{i}.b", b(conv))]
+        alpha = rdb.alpha.float()
+        t += [(f"rdb{r}.lff.w", mat(rdb.lff) * alpha),
+              (f"rdb{r}.lff.b", b(rdb.lff) * alpha)]
+    c = model.csar
+    t += [("csar.in0.w", hwio(c.conv_in0)), ("csar.in0.b", b(c.conv_in0)),
+          ("csar.in1.w", hwio(c.conv_in1)), ("csar.in1.b", b(c.conv_in1)),
+          ("csar.fc1.w", c.ca_fc1_w.float()), ("csar.fc1.b", c.ca_fc1_b.float()),
+          ("csar.fc2.w", c.ca_fc2_w.float()), ("csar.fc2.b", c.ca_fc2_b.float()),
+          ("csar.sa1.w", mat(c.sa_conv1)), ("csar.sa1.b", b(c.sa_conv1)),
+          ("csar.sa2.w", mat(c.sa_conv2)), ("csar.sa2.b", b(c.sa_conv2)),
+          ("csar.out.w", mat(c.conv_out)), ("csar.out.b", b(c.conv_out)),
+          ("gff0.w", mat(model.gff0)), ("gff0.b", b(model.gff0)),
+          ("gff1.w", hwio(model.gff1)), ("gff1.b", b(model.gff1)),
+          ("final.w", hwio(model.final_conv)),
+          ("final.b", b(model.final_conv))]
+    if tuple(k for k, _ in t) != PACK_KEYS:
+        raise AssertionError("packed entries out of order")
+    entries, parts, off = {}, [], 0
+    for key, v in t:
+        n = v.numel()
+        entries[key] = (off, tuple(v.shape))
+        pad = -n % 4                    # 16-byte aligned entries
+        parts += [v.reshape(-1), v.new_zeros(pad)]
+        off += n + pad
+    return LpsrPacked(torch.cat(parts).contiguous(), entries)
+
+
+def _conv(z: Tensor, w: Tensor, b=None, groups: int = 1) -> Tensor:
+    """NCHW activations (stored dtype) x HWIO float32 weight -> float32 sum
+    plus bias, 'same' padding."""
+    if w.dim() == 2:                                # (cin, cout) 1x1
+        w = w[None, None]
+    if groups > 1:                                  # (k, k, C) depthwise
+        w = w[:, :, None, :]
+    k = w.shape[0]
+    return F.conv2d(z.float(), w.permute(3, 2, 0, 1), b, padding=k // 2,
+                    groups=groups)
+
+
+def lpsr_plain(x: Tensor, p: LpsrPacked) -> Tensor:
+    """The plain PyTorch version: x (N, H, W, 3) in [0, 1] -> (N, H, W, 1)
+    float32, activations stored in ``x``'s dtype (see the module
+    docstring for where it rounds)."""
+    dt = x.dtype
+
+    def conv(z, key, bias=True, relu=False):
+        y = _conv(z, p[f"{key}.w"], p[f"{key}.b"] if bias else None).to(dt)
+        return torch.relu(y) if relu else y
+
+    def dconv(z, key):
+        c = z.shape[1]
+        y = _conv(z, p[f"{key}.dw.w"], p[f"{key}.dw.b"], groups=c).to(dt)
+        return conv(y, f"{key}.pw")
+
+    def add(a, b):
+        return (a.float() + b.float()).to(dt)
+
+    z = x.permute(0, 3, 1, 2)
+    _, _, h, w = z.shape
+    if h % 4 or w % 4:
+        raise ValueError(f"LPSR needs H % 4 == 0 and W % 4 == 0, got {(h, w)}")
+    ci = conv(z, "ae.conv_in", bias=False)
+    y = torch.relu(F.pixel_unshuffle(dconv(ci, "ae.enc0"), 2))
+    y = torch.relu(F.pixel_unshuffle(dconv(y, "ae.enc1"), 2))
+    y = torch.relu(F.pixel_shuffle(dconv(y, "ae.dec0"), 2))
+    y = torch.relu(F.pixel_shuffle(dconv(y, "ae.dec1"), 2))
+    y = conv(add(ci, y), "ae.conv_out", bias=False)
+
+    sfe1 = conv(y, "sf1")
+    z = conv(sfe1, "sf2")
+
+    def rdb(r, z):
+        y = z
+        for i in range(4):
+            y = torch.cat([y, conv(y, f"rdb{r}.l{i}", relu=True)], 1)
+        return add(z, conv(y, f"rdb{r}.lff"))
+
+    def csar(z):
+        x_in = conv(conv(z, "csar.in0", relu=True), "csar.in1")
+        ca = x_in.float().mean((2, 3))
+        ca = torch.relu(ca @ p["csar.fc1.w"] + p["csar.fc1.b"])
+        ca = torch.sigmoid(ca @ p["csar.fc2.w"] + p["csar.fc2.b"])
+        x_ca = (x_in.float() * ca[:, :, None, None]).to(dt)
+        sa = conv(conv(x_in, "csar.sa1", relu=True), "csar.sa2")
+        sa = torch.sigmoid(sa.float()).to(dt)
+        y = torch.cat([(x_in.float() * x_ca.float()).to(dt),
+                       (x_in.float() * sa.float()).to(dt)], 1)
+        return add(z, conv(y, "csar.out"))
+
+    feats = []
+    for i in range(4):
+        z = rdb(i // 2, z) if i % 2 == 0 else csar(z)
+        feats.append(z)
+    z = add(conv(conv(torch.cat(feats, 1), "gff0"), "gff1"), sfe1)
+    out = torch.sigmoid(conv(z, "final").float())
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def lpsr_errors(got: Tensor, ref: Tensor) -> Tuple[float, float]:
+    """(max abs error, mean abs error) of a K2 output against
+    :func:`lpsr_plain`; they agree when both are below TOL_MAX / TOL_MEAN of
+    the activation dtype."""
+    err = (got.float() - ref.float()).abs()
+    return err.max().item(), err.mean().item()
+
+
+@functools.cache
+def _lib():
+    from lpr_tpu_torch.kernels._build import library
+
+    lib = library("lpsr")
+    for name in ("lpr_lpsr_bf16", "lpr_lpsr_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 2
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.lpr_lpsr_scratch_elems.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lpr_lpsr_scratch_elems.restype = ctypes.c_longlong
+    return lib
+
+
+def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
+    """The LPSR forward on plate crops x (N, H, W, 3) -> (N, H, W, 1)
+    float32.
+
+    A CUDA tensor launches the K2 kernel on the current stream (bfloat16
+    or float32 activations, contiguous, H % 4 == 0, W % 4 == 0; anything
+    else raises) and adds one to ``lpsr_fused.launches``; a CPU tensor
+    takes :func:`lpsr_plain`."""
+    if x.device.type == "cpu":
+        return lpsr_plain(x, packed)
+    if x.device.type != "cuda":
+        raise ValueError(f"lpsr_fused runs on cuda or cpu, not {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"lpsr_fused takes bfloat16 or float32, got "
+                         f"{x.dtype}")
+    if x.dim() != 4 or x.shape[3] != 3:
+        raise ValueError(f"expected (N, H, W, 3), got {tuple(x.shape)}")
+    n, h, w, _ = x.shape
+    if h % 4 or w % 4 or n <= 0 or h <= 0 or w <= 0:
+        raise ValueError(f"LPSR kernel needs H % 4 == 0 and W % 4 == 0, "
+                         f"got {(h, w)}")
+    if not x.is_contiguous():
+        raise ValueError("lpsr_fused takes a contiguous NHWC tensor")
+    buf = packed.buf
+    if (buf.device != x.device or buf.dtype != torch.float32
+            or not buf.is_contiguous() or buf.data_ptr() % 16):
+        raise ValueError(f"packed weights must be a contiguous, 16-byte "
+                         f"aligned float32 buffer on {x.device}")
+    lib = _lib()
+    per_image = lib.lpr_lpsr_scratch_elems(h, w)
+    if per_image <= 0:
+        raise ValueError(f"LPSR kernel cannot take {(h, w)}")
+    scratch = torch.empty(n * per_image, dtype=x.dtype, device=x.device)
+    out = torch.empty((n, h, w, 1), dtype=torch.float32, device=x.device)
+    offs = (ctypes.c_int * len(packed.offsets))(*packed.offsets)
+    fn = lib.lpr_lpsr_bf16 if x.dtype == torch.bfloat16 else lib.lpr_lpsr_f32
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), buf.data_ptr(), offs, len(offs),
+                 scratch.data_ptr(), out.data_ptr(), n, h, w, stream)
+    if err != 0:
+        raise RuntimeError(f"lpsr kernel launch failed: cudaError {err}")
+    lpsr_fused.launches += 1
+    return out
+
+
+lpsr_fused.launches = 0
+
+
+def lpsr_work(n: int, h: int, w: int) -> Tuple[int, int]:
+    """(floating-point operations, bytes) of the LPSR forward on n images
+    of h x w: 2 x multiply-adds of every convolution and dense layer at its
+    own resolution; input read once (bf16), float32 output written once,
+    float32 weights read once."""
+    p, p2, p4 = h * w, (h // 2) * (w // 2), (h // 4) * (w // 4)
+    ae = (p * 9 * 3 * 12                            # conv_in
+          + p * (25 * 12 + 12 * 12)                 # enc0 dw + pw
+          + p2 * (25 * 48 + 48 * 12)                # enc1
+          + p4 * (25 * 48 + 48 * 48)                # dec0
+          + p2 * (25 * 12 + 12 * 48)                # dec1
+          + p * 9 * 12 * 3)                         # conv_out
+    rdb = p * (9 * 16 * (32 + 48 + 64 + 80) + 96 * 32)
+    csar = p * (2 * 9 * 32 * 32 + 32 * 64 + 64 * 32 + 64 * 32) \
+        + 32 * 8 + 8 * 32
+    rdn = (p * (49 * 3 * 32 + 9 * 32 * 32)          # shallowF1, F2
+           + 2 * rdb + 2 * csar
+           + p * (128 * 32 + 9 * 32 * 32 + 9 * 32))  # gff0, gff1, final
+    n_weights = (9 * 3 * 12 + 2 * (25 * 12 + 12) + 12 * 12 + 12
+                 + 25 * 48 + 48 + 48 * 12 + 12 + 25 * 48 + 48 + 48 * 48 + 48
+                 + 12 * 48 + 48 + 9 * 12 * 3
+                 + 49 * 3 * 32 + 32 + 9 * 32 * 32 + 32
+                 + 2 * (9 * 16 * (32 + 48 + 64 + 80) + 4 * 16 + 96 * 32 + 32)
+                 + 2 * (9 * 32 * 32 + 32) + 32 * 8 + 8 + 8 * 32 + 32
+                 + 32 * 64 + 64 + 2 * (64 * 32 + 32)
+                 + 128 * 32 + 32 + 9 * 32 * 32 + 32 + 9 * 32 + 1)
+    nbytes = n * p * (3 * 2 + 4) + 4 * n_weights
+    return 2 * n * (ae + rdn), nbytes

@@ -325,22 +325,36 @@ class YoloModel(torch.nn.Module):
             l.load(state, str(l.i))
         return self
 
-    def forward(self, x: Tensor, front=None) -> List[Tensor]:
+    def forward(self, x: Tensor, front=None, mid=None) -> List[Tensor]:
         """``front``: packed weights from
         :func:`lpr_tpu_torch.kernels.yolo_front.front_pack` — layers 0-2 then
-        run as the fused front kernel (``lpr_tpu/models/yolo.py:975-986``)."""
+        run as the fused front kernel K1 (``lpr_tpu/models/yolo.py:975-986``);
+        ``mid`` (with ``front``): packed weights from
+        :func:`lpr_tpu_torch.kernels.yolo_mid.mid_pack` — layers 3-4 then
+        run as K3 (``:987-999``)."""
         if front is None:
+            if mid is not None:
+                raise ValueError("the fused mid runs on the fused front's "
+                                 "output: pass front as well")
             return self.forward_from(x, 0)
         from lpr_tpu_torch.kernels.yolo_front import yolo_front
 
-        return self.forward_from(yolo_front(x, front), 3)
+        y = yolo_front(x, front)
+        if mid is None:
+            return self.forward_from(y, 3)
+        from lpr_tpu_torch.kernels.yolo_mid import yolo_mid
+
+        return self.forward_from(yolo_mid(y, mid), 5)
 
     def forward_from(self, y, start: int) -> List[Tensor]:
         """Run layers ``start:`` on ``y``, the output of layer ``start - 1``
-        (which no later layer may read from the saved outputs)."""
-        if start and (start - 1) in self.save:
-            raise ValueError(f"layer {start - 1} output is read later")
+        (kept as that layer's saved output where a later layer reads it;
+        no earlier saved output may be needed)."""
+        if any(j < start - 1 for j in self.save):
+            raise ValueError(f"a layer before {start - 1} is read later")
         saved: Dict[int, Any] = {}
+        if start and (start - 1) in self.save:
+            saved[start - 1] = y
         n = len(self.layers)
         for l in self.layers[start:]:
             if l.f != -1:

@@ -2,15 +2,17 @@
 ``lpr_tpu/pipeline/recognizer.py``).
 
 One step over a batch of frames, all on the device: letterbox, the plate
-detector (layers 0-2 through the K1 kernel), lazy-decode NMS, the top
-plates by area, per-plate skew estimate and rotated crops (interpolation
-matrices), the 2-row -> 1-row reshape, LPSR, the char OCR on the raw crop
-and on the SR canvas, and char NMS.  Only the small fixed-shape outputs go
-to the host, where :meth:`PlateRecognizer.assemble` builds the strings.
+detector (layers 0-2 through the K1 kernel, and layers 3-4 through K3 when
+``fused_mid`` is set), lazy-decode NMS, the top plates by area, per-plate
+skew estimate and rotated crops (interpolation matrices), the 2-row ->
+1-row reshape, LPSR (on a card always the K2 kernel, on the CPU its plain
+version), the char OCR on the raw crop and on the SR canvas, and char NMS.
+Only the small fixed-shape outputs go to the host, where
+:meth:`PlateRecognizer.assemble` builds the strings.
 
 The step keeps the JAX step's cast points: frames are cast to
-``cfg.dtype`` and divided by 255, LPSR runs in ``cfg.dtype`` and its output
-is cast to float32, the char model gets ``cfg.dtype``.
+``cfg.dtype`` and divided by 255, LPSR runs in ``cfg.dtype`` with a
+float32 output, the char model gets ``cfg.dtype``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from lpr_tpu_torch.device import DeviceLike, resolve_device
+from lpr_tpu_torch.kernels.lpsr import lpsr_fused, lpsr_pack
 from lpr_tpu_torch.models.lpsr import LPSR
 from lpr_tpu_torch.models.yolo import YoloModel
 from lpr_tpu_torch.ops import image as im
@@ -61,6 +64,11 @@ class PipelineConfig:
     # multiples of (32, 64).  The recognizer raises on a configuration the
     # kernel cannot take rather than skipping it.
     fused_front: bool = True
+    # Extend the fused path through layers 3-4 (kernels/yolo_mid.py, K3).
+    # Off by default, as in the JAX package, where the TPU kernel measured a
+    # net end-to-end loss at the bench geometry.  Needs fused_front (whose
+    # geometry K3 always takes); the recognizer raises without it.
+    fused_mid: bool = False
 
 
 def _aspect_canvas(img: Tensor, canvas_hw: Tuple[int, int]) -> Tensor:
@@ -121,6 +129,16 @@ class PlateRecognizer:
                                  "card: use dtype=torch.bfloat16 or "
                                  "fused_front=False")
             self._front = front_pack(self.plate_model)
+        self._mid = None
+        if cfg.fused_mid:
+            from lpr_tpu_torch.kernels.yolo_mid import mid_pack
+
+            if not cfg.fused_front:
+                raise ValueError("fused_mid runs on the fused front's output:"
+                                 " set fused_front as well")
+            self._mid = mid_pack(self.plate_model)
+        # K2 on a card, its plain version on the CPU (kernels/lpsr.py).
+        self._lpsr = lpsr_pack(self.lpsr_model)
 
     # ------------------------------------------------------------------
     def _per_plate(self, x: Tensor, boxes: Tensor):
@@ -179,7 +197,8 @@ class PlateRecognizer:
         P = cfg.max_plates
         x = frames.to(cfg.dtype) / 255.0
         lb, gain, pad = im.letterbox(x, cfg.det_hw, fill=0.0)
-        raws = self.plate_model(lb.contiguous(), front=self._front)
+        raws = self.plate_model(lb.contiguous(), front=self._front,
+                                mid=self._mid)
         det = nms_from_raw(raws, self.plate_model.strides,
                            self.plate_model.anchors, cfg.det_conf, cfg.iou,
                            max_det=16, pre_topk=64, multi_label=True,
@@ -200,7 +219,8 @@ class PlateRecognizer:
         long_img, ocr_orig, is_long = self._per_plate(x, sel_boxes)
         sh, sw = cfg.sr_hw
         oh, ow = cfg.ocr_hw
-        sr_out = self.lpsr_model(long_img.reshape(B * P, sh, sw, 3)).float()
+        sr_out = lpsr_fused(long_img.reshape(B * P, sh, sw, 3)
+                            .to(cfg.dtype).contiguous(), self._lpsr)
         ocr_sr = self._sr_to_ocr_canvas(sr_out, is_long.reshape(B * P))
         if cfg.ocr_on_original:
             ocr_in = torch.cat([ocr_orig.reshape(B * P, oh, ow, 3).float(),

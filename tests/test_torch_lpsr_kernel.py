@@ -1,0 +1,146 @@
+"""K2, the LPSR stage as one kernel: the port's packer and plain version
+against the JAX package's kernel (interpret mode) and reference, the
+wrapper's dispatch and work count, and (on a card) the CUDA kernel against
+the plain version."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lpr_tpu.models.lpsr import LPSRConfig, lpsr_apply, lpsr_init
+from lpr_tpu.ops.pallas.lpsr_kernel import lpsr_pallas
+from lpr_tpu.weights.checkpoint import load_params
+from lpr_tpu_torch.kernels import lpsr as kl
+from lpr_tpu_torch.models import lpsr as tlpsr
+from lpr_tpu_torch.weights.checkpoint import params_from_jax
+
+from .torch_ref import LPSR
+
+CFG = LPSRConfig()
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """lpsr_init's random weights, and the real checkpoint loaded into the
+    same pytree (as torch_ref.lpsr loads it, with one compile of init)."""
+    rand = jax.jit(lambda k: lpsr_init(k, CFG))(jax.random.PRNGKey(0))
+    return {"random": jax.device_get(rand),
+            "real": jax.device_get(load_params(LPSR, rand))}
+
+
+def _port(params):
+    """The port's LPSR module on the same weights, carried across by
+    params_from_jax, and its packed buffer."""
+    model = tlpsr.LPSR(params_from_jax(params)).eval()
+    return model, kl.lpsr_pack(model)
+
+
+def _crops(n, seed):
+    return np.random.RandomState(seed).rand(n, 32, 192, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("weights", ["random", "real"])
+def test_lpsr_plain_bf16_matches_jax_kernel(jax_params, weights):
+    """lpsr_plain in bf16 vs lpsr_pallas (interpret mode, bf16 activations,
+    float32 weights) on two crops.  Both round at the same points; they
+    differ where float32 sums taken in another order round to neighbouring
+    bf16 values (about half the outputs, by up to 8.2e-3 with the real
+    weights; measured).  Bound: the JAX kernel test's 2e-2, and a mean of
+    2e-3."""
+    params = jax_params[weights]
+    _, packed = _port(params)
+    x = _crops(2, 1)
+    ref = np.asarray(lpsr_pallas(params, jnp.asarray(x), CFG,
+                                 interpret=True))
+    got = kl.lpsr_plain(torch.from_numpy(x).to(torch.bfloat16), packed)
+    assert got.dtype == torch.float32 and got.shape == (2, 32, 192, 1)
+    err = np.abs(got.numpy() - ref)
+    assert err.max() < 2e-2, err.max()
+    assert err.mean() < 2e-3, err.mean()
+
+
+def test_lpsr_plain_fp32_matches_lpsr_apply_and_model(jax_params):
+    """lpsr_plain in float32 vs lpsr_apply (JAX at 'highest') and vs the
+    port's LPSR.forward, real weights: float32 rounding only (alpha folded
+    into lff, sums in another order)."""
+    params = jax_params["real"]
+    model, packed = _port(params)
+    x = _crops(2, 2)
+    ref = np.asarray(jax.jit(lambda p, v: lpsr_apply(p, v, CFG))(
+        params, jnp.asarray(x)))
+    xt = torch.from_numpy(x)
+    got = kl.lpsr_plain(xt, packed).numpy()
+    with torch.inference_mode():
+        own = model(xt).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, own, rtol=0, atol=1e-5)
+
+
+def test_lpsr_pack_layout_and_rejections():
+    model = tlpsr.load_lpsr(LPSR, device="cpu")
+    packed = kl.lpsr_pack(model)
+    assert len(packed.offsets) == len(kl.PACK_KEYS) == 62
+    assert all(o % 4 == 0 for o in packed.offsets)
+    assert list(packed.offsets) == sorted(packed.offsets)
+    assert packed.buf.dtype == torch.float32
+    assert packed["ae.conv_in.w"].shape == (3, 3, 3, 12)
+    assert packed["csar.fc1.w"].shape == (32, 8)
+    alpha = float(model.rdbs[1].alpha)
+    np.testing.assert_allclose(
+        packed["rdb1.lff.b"].numpy(),
+        model.rdbs[1].lff.b.numpy() * alpha, rtol=1e-6)
+    with pytest.raises(ValueError):
+        kl.lpsr_plain(torch.rand(1, 30, 192, 3), packed)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    packed = kl.lpsr_pack(tlpsr.load_lpsr(LPSR, device="cpu"))
+    x = torch.from_numpy(_crops(1, 3))
+    before = kl.lpsr_fused.launches
+    got = kl.lpsr_fused(x, packed)
+    assert kl.lpsr_fused.launches == before       # no kernel launch
+    np.testing.assert_array_equal(got.numpy(),
+                                  kl.lpsr_plain(x, packed).numpy())
+    with pytest.raises(ValueError):
+        kl.lpsr_fused(x.to("meta"), packed)
+
+
+def test_lpsr_work_at_the_production_shape():
+    """917.3 M multiply-adds per 32x192 image, 44.0 GFLOP for the main
+    path's N = 24; ~2.0 MB moved (bf16 input, float32 output, float32
+    weights once)."""
+    flops, nbytes = kl.lpsr_work(24, 32, 192)
+    assert kl.lpsr_work(1, 32, 192)[0] == pytest.approx(2 * 917.3e6,
+                                                        rel=1e-4)
+    assert flops == pytest.approx(44.03e9, rel=1e-3)
+    io = 24 * 32 * 192 * (3 * 2 + 4)
+    assert 0 < nbytes - io < 6e5
+    packed = kl.lpsr_pack(tlpsr.load_lpsr(LPSR, device="cpu"))
+    n_weights = sum(int(np.prod(s)) for _, s in packed.entries.values())
+    assert nbytes - io == 4 * n_weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernel_matches_plain_version_on_card(dtype):
+    """K2 vs lpsr_plain on the card at the main path's (24, 32, 192, 3),
+    real weights, within kl.TOL_MAX / TOL_MEAN of the activation dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    model = tlpsr.load_lpsr(LPSR, device="cuda").to(dt)
+    p = kl.lpsr_pack(model)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((24, 32, 192, 3), generator=g, device="cuda").to(dt)
+    before = kl.lpsr_fused.launches
+    got = kl.lpsr_fused(x, p)
+    ref = kl.lpsr_plain(x, p)
+    torch.cuda.synchronize()
+    assert kl.lpsr_fused.launches == before + 1
+    max_err, mean_err = kl.lpsr_errors(got, ref)
+    assert max_err < kl.TOL_MAX[dt], max_err
+    assert mean_err < kl.TOL_MEAN[dt], mean_err

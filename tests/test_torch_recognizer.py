@@ -91,15 +91,20 @@ def compare(jr, tr, frames):
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    {}, dict(fast_geometry=False, ocr_on_original=False, deskew=False)])
+    {}, dict(fast_geometry=False, ocr_on_original=False, deskew=False),
+    dict(fused_mid=True)])
 def test_slice_matches_jax_recognizer(cfg_kw):
-    """Two 180x320 frames, detector at 192x320; the default configuration
-    and the gather sampler / SR-only OCR / no deskew one."""
+    """Two 180x320 frames, detector at 192x320; the default configuration,
+    the gather sampler / SR-only OCR / no deskew one, and fused_mid (on the
+    CPU the JAX side runs the unfused layers and the port the plain
+    versions of K1 and K3, so the results must be the same)."""
     jr, tr = build_pair((192, 320), **cfg_kw)
+    assert (tr._mid is not None) == cfg_kw.get("fused_mid", False)
     results = compare(jr, tr, synth_frames(2, (180, 320), seed=3))
     assert sum(len(f) for f in results) >= 2
     assert any(p["text_sr"] for f in results for p in f)
-    assert any(p["text"] for f in results for p in f) == (not cfg_kw)
+    assert (any(p["text"] for f in results for p in f)
+            == cfg_kw.get("ocr_on_original", True))
 
 
 @pytest.mark.slow
@@ -145,3 +150,7 @@ def test_recognizer_rejects_what_the_front_kernel_cannot_take():
         det_hw=(200, 320), dtype=torch.float32, fused_front=False),
         device="cpu")
     assert rec._front is None
+    with pytest.raises(ValueError):     # fused_mid needs fused_front
+        trec.PlateRecognizer(plate, char, lpsr, trec.PipelineConfig(
+            det_hw=(192, 320), dtype=torch.float32, fused_front=False,
+            fused_mid=True), device="cpu")
