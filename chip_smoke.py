@@ -7,15 +7,22 @@ Phases, each printing one line with its elapsed seconds:
 
 1. device  — the card's name and power limit (nvidia-smi); fails without a
    CUDA device.
-2. build   — every kernel in lpr_tpu_torch/csrc (yolo_front K1, lpsr K2,
-   yolo_mid K3) built with nvcc (one process per source, all started
-   together), loaded with ctypes; prints nvcc's register / shared-memory /
-   spill report.
+2. build   — every kernel in lpr_tpu_torch/csrc (yolo_front K1 and its
+   K4 stage variants, lpsr K2, yolo_mid K3) built with nvcc (one process
+   per source, all started together), loaded with ctypes; prints nvcc's
+   register / shared-memory / spill report.
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes (K1 on frames, K2 on 24 plate crops, K3 on K1's
    output for 8 frames; the real weights), with the tolerance stated beside
    it, then both timed with CUDA events (plain, kernel, kernel, plain).
-4. slice   — PlateRecognizer at the production configuration (720p frames,
+4. probe   — K4, K1's four stage variants (dma, stem, down, full; one
+   instance each of the K1 source): the probe tool's timing of them at
+   (8, 736, 1280, 3) (K4's path, with its launch counts), then each
+   against its plain version on the same frames and real weights (dma
+   exact, stem and down within K1's bound, full bit-identical to K1's
+   output in phase kernels), timed (plain, kernel, kernel, plain) beside
+   its bound.
+5. slice   — PlateRecognizer at the production configuration (720p frames,
    detector at 736x1280, bf16, the repo's checkpoints) on 8 frames made
    with numpy from a fixed seed (lpr_tpu_torch.tools.synth): output shapes
    and finiteness, the K1 and K2 launch counts, the detector's raw head
@@ -23,16 +30,19 @@ Phases, each printing one line with its elapsed seconds:
    Then the same with PipelineConfig(fused_mid=True): the K3 launch count,
    the head through K1 + K3 against the head through the plain versions,
    frames/s.
-5. serve   — InferenceServer(max_batch=8) answers 16 requests; the
+6. stages  — the default slice's step split by stage
+   (lpr_tpu_torch.tools.profile_stages, one short round): host ms,
+   device-busy ms and launches per stage.
+7. serve   — InferenceServer(max_batch=8) answers 16 requests; the
    answers must equal the recognizer's own; then stop().
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  The second-to-last line is one JSON object
 {"kernels": [...]} (launch counts of K1 and K2 from the serve phase, the
-main path a user drives, of K3 from the fused_mid slice); the last line
-is {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
-before that line.  A watchdog turns a hang into a failing exit with a
-traceback.
+main path a user drives, of K3 from the fused_mid slice, of each K4
+variant from the probe phase); the last line is {"ok": true, "device":
+{...}}.  Any failure raises and exits non-zero before that line.  A
+watchdog turns a hang into a failing exit with a traceback.
 """
 
 from __future__ import annotations
@@ -43,10 +53,10 @@ import subprocess
 import sys
 import time
 
-# A whole run, the three nvcc builds (~27 s, all started together)
-# included, measured 44 s on an H100; the watchdog turns a hang into a
-# failing exit at about three times that.
-WATCHDOG_S = 135
+# A whole run, the three nvcc builds (36-53 s, all started together)
+# included, measured 67-102 s on an H100; the watchdog turns a hang into a
+# failing exit at about three times the slowest.
+WATCHDOG_S = 300
 SEED = 0
 BATCH = 8
 FRAME_HW = (720, 1280)
@@ -54,9 +64,6 @@ DET_HW = (736, 1280)
 CKPT_PLATE = "checkpoints/plate_det640.npz"
 CKPT_CHAR = "checkpoints/char_ocr_synth.npz"
 CKPT_LPSR = "checkpoints/lpsr_synth_glare/best_model.npz"
-# H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_S = 3.35e12
 # K1 vs its plain version: lpr_tpu_torch.kernels.yolo_front.TOL_* (0.03 +
 # two bf16 ulps elementwise over the whole tensor, interior mean 0.004).
 # K2 vs its plain version: lpr_tpu_torch.kernels.lpsr.TOL_MAX / TOL_MEAN
@@ -77,23 +84,6 @@ _T0 = time.perf_counter()
 def phase(name: str, t_start: float, note: str = "") -> None:
     print(f"phase {name}: ok {time.perf_counter() - t_start:.2f} s "
           f"(total {time.perf_counter() - _T0:.2f} s){note}", flush=True)
-
-
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches (CUDA events), after a
-    warm-up."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main() -> int:
@@ -126,6 +116,7 @@ def main() -> int:
     from lpr_tpu_torch.kernels import lpsr as kl
     from lpr_tpu_torch.kernels import yolo_front as kf
     from lpr_tpu_torch.kernels import yolo_mid as km
+    from lpr_tpu_torch.tools import _timing
 
     t = time.perf_counter()
     libs = _build.build()
@@ -141,6 +132,7 @@ def main() -> int:
         kf.yolo_front.launches = 0
         kl.lpsr_fused.launches = 0
         km.yolo_mid.launches = 0
+        kf.front_stage.launches = dict.fromkeys(kf.STAGES, 0)
 
     def counts():
         return {"yolo_front": kf.yolo_front.launches,
@@ -150,15 +142,9 @@ def main() -> int:
     def timed(kernel, plain, iters):
         """(kernel ms, plain ms, runs) over turns plain, kernel, kernel,
         plain; each the best of its two runs."""
-        runs = [time_ms(plain, iters), time_ms(kernel, iters),
-                time_ms(kernel, iters), time_ms(plain, iters)]
+        runs = [_timing.event_ms(f, iters)
+                for f in (plain, kernel, kernel, plain)]
         return min(runs[1:3]), min(runs[0], runs[3]), runs
-
-    def bound(work):
-        flops, nbytes = work
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-        return (1e3 * max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes")
 
     # ---- 3. kernels -----------------------------------------------------
     from lpr_tpu_torch.models.lpsr import load_lpsr
@@ -194,7 +180,7 @@ def main() -> int:
                     ).to(torch.bfloat16)
     k_ms, plain_ms, runs = timed(lambda: kf.yolo_front(x8, packed),
                                  lambda: kf.front_plain(x8, packed), iters)
-    bound_ms, bound_by = bound(kf.front_work(BATCH, *DET_HW))
+    bound_ms, bound_by = _timing.bound_ms(kf.front_work(BATCH, *DET_HW))
     print(f"K1 timing at ({BATCH}, {DET_HW[0]}, {DET_HW[1]}, 3) on {card}: "
           f"kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs plain, "
           f"kernel, kernel, plain {runs}), bound {bound_ms:.4f} ms "
@@ -229,7 +215,7 @@ def main() -> int:
                                  lambda: kl.lpsr_plain(crops, lpsr_packed),
                                  iters)
     work = kl.lpsr_work(LPSR_N, *LPSR_HW)
-    bound_ms, bound_by = bound(work)
+    bound_ms, bound_by = _timing.bound_ms(work)
     print(f"K2 timing at ({LPSR_N}, {LPSR_HW[0]}, {LPSR_HW[1]}, 3) on "
           f"{card}: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs "
           f"{runs}), bound {bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)",
@@ -262,7 +248,7 @@ def main() -> int:
     k_ms, plain_ms, runs = timed(lambda: km.yolo_mid(y8, mid_packed),
                                  lambda: km.mid_plain(y8, mid_packed), iters)
     work = km.mid_work(BATCH, *y8.shape[1:3])
-    bound_ms, bound_by = bound(work)
+    bound_ms, bound_by = _timing.bound_ms(work)
     print(f"K3 timing at {tuple(y8.shape)} on {card}: kernel {k_ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms (runs {runs}), bound "
           f"{bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)", flush=True)
@@ -274,12 +260,67 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     })
+    phase("kernels", t)
+
+    # ---- 4. probe -------------------------------------------------------
+    from lpr_tpu_torch.tools import probe_front_stages
+
+    t = time.perf_counter()
+    # K4's path: the probe tool times the four variants on K1's input.
+    counts_to_zero()
+    probe_ms = probe_front_stages.probe(x8, packed, iters, rounds=1)
+    torch.cuda.synchronize()
+    probe_counts = dict(kf.front_stage.launches)
+    if min(probe_counts.values()) < 1:
+        raise AssertionError(f"the probe did not launch every K4 variant: "
+                             f"{probe_counts}")
+    for line in probe_front_stages.report(probe_ms, BATCH, *DET_HW):
+        print(f"probe on {card}: {line}", flush=True)
+    # Each variant against its plain version on the same frames.
+    for stage in kf.STAGES:
+        got = kf.front_stage(x8, packed, stage)
+        ref = kf.front_stage_plain(x8, packed, stage)
+        torch.cuda.synchronize()
+        max_err, ratio, mean_int = kf.front_errors(got, ref)
+        if stage == "dma":
+            ok = torch.equal(got, ref)
+            rule = "bit for bit (a copy)"
+        else:
+            ok = ratio < 1.0 and mean_int < kf.TOL_INTERIOR_MEAN
+            rule = (f"max err/(abs {kf.TOL_ABS} + rel {kf.TOL_REL}) {ratio} "
+                    f"(< 1), interior mean {mean_int} "
+                    f"(< {kf.TOL_INTERIOR_MEAN})")
+        if stage == "full":
+            ok = ok and torch.equal(got, y8)
+            rule += "; bit for bit K1's output"
+        print(f"K4 front_stage[{stage}] vs front_stage_plain "
+              f"{tuple(x8.shape)} bf16: max_abs_err {max_err}; {rule}: "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"K4 {stage} disagrees with its plain "
+                                 f"version")
+        k_ms, plain_ms, runs = timed(
+            lambda: kf.front_stage(x8, packed, stage),
+            lambda: kf.front_stage_plain(x8, packed, stage), iters)
+        work = kf.front_stage_work(stage, BATCH, *DET_HW)
+        bound_ms, bound_by = _timing.bound_ms(work)
+        print(f"K4 {stage} timing at {tuple(x8.shape)} on {card}: kernel "
+              f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs {runs}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)", flush=True)
+        kernels.append({
+            "name": f"yolo_front_stage[{stage}]", "route": "cuda",
+            "source": "lpr_tpu_torch/csrc/yolo_front.cu",
+            "replaces": "tools/probe_front_stages.py:53",
+            "launches": probe_counts[stage], "max_abs_err": max_err,
+            "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+        })
     print("kernels: " + ", ".join(
         f"{k['name']} ({k['route']}, {k['source']}, replaces "
         f"{k['replaces']})" for k in kernels), flush=True)
-    phase("kernels", t)
+    phase("probe", t, f"; launches {probe_counts}")
 
-    # ---- 4. slice -------------------------------------------------------
+    # ---- 5. slice -------------------------------------------------------
     from lpr_tpu_torch.ops.image import letterbox
     from lpr_tpu_torch.pipeline.recognizer import (PipelineConfig,
                                                    PlateRecognizer, to_host)
@@ -395,7 +436,20 @@ def main() -> int:
     phase("slice", t, f"; launches default {slice_counts}, fused_mid "
           f"{mid_counts}")
 
-    # ---- 5. serve -------------------------------------------------------
+    # ---- 6. stages ------------------------------------------------------
+    from lpr_tpu_torch.tools import profile_stages
+
+    t = time.perf_counter()
+    step_row, rows, alt = profile_stages.split_rows(rec, frames, calls=2,
+                                                    rounds=1)
+    print(f"stages: the default step by stage on {card}; batch {BATCH}, "
+          f"720p, det {DET_HW[0]}x{DET_HW[1]}, bf16; per call, one round of "
+          f"2 calls", flush=True)
+    for line in profile_stages.report(step_row, rows, alt):
+        print(f"stages: {line}", flush=True)
+    phase("stages", t)
+
+    # ---- 7. serve -------------------------------------------------------
     from lpr_tpu_torch.serve.server import InferenceServer, ServeConfig
 
     t = time.perf_counter()

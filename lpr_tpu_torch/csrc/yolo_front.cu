@@ -29,6 +29,17 @@
 // scalar fp32 FMA on the CUDA cores: far from the tensor-core bound; wgmma,
 // TMA and a layout for them are later work.
 //
+// Stage variants (the port of tools/probe_front_stages.py `make_variant`,
+// which shows where K1's time goes): the stage is a template parameter of
+// front_kernel.  DMA stops after staging the space-to-depth tile, STEM after
+// the stem, DOWN after the down conv, FULL is K1.  A cut variant writes K1's
+// output shape from the block's own 8x16 tile and returns, so the compiler
+// drops every later stage; the production launcher runs the FULL instance.
+//   DMA   out(y, x, p*16 + k) = s2d(2y + rho, 2x + pi, k) for plane
+//         p = 2*rho + pi and k < 12; channels p*16 + 12..15 are zero.
+//   STEM  out(y, x, 0..31) = stem(2y, 2x), out(y, x, 32..63) = stem(2y, 2x+1).
+//   DOWN  out(y, x, :) = down(y, x).
+//
 // Neighbouring threads compute neighbouring positions, so the channel run
 // of each position in shared memory is padded by one 4-byte word: its
 // stride in words is odd and a warp's loads of one channel pair hit 32
@@ -174,6 +185,31 @@ __device__ __forceinline__ void conv_stage(const bf16* __restrict__ in,
   }
 }
 
+enum Stage : int { DMA = 0, STEM = 1, DOWN = 2, FULL = 3 };
+
+// 8 bf16 from shared memory at a 4-byte aligned address.
+__device__ __forceinline__ uint4 load8_shared(const bf16* src) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  return make_uint4(s[0], s[1], s[2], s[3]);
+}
+
+// The block's 8x16 output tile, written as 16-byte chunks: chunk q of
+// position (oy, ox) holds channels 8q .. 8q+7 and is chunk(oy, ox, q).
+// Neighbouring threads write neighbouring chunks.
+template <class Chunk>
+__device__ __forceinline__ void store_tile(bf16* __restrict__ out, int img,
+                                           int r0, int c0, int H4, int W4,
+                                           Chunk chunk) {
+  for (int e = threadIdx.x; e < TH * TW * (C2 / 8); e += NTHREADS) {
+    const int pos = e / (C2 / 8), q = e - pos * (C2 / 8);
+    const int oy = pos / TW, ox = pos - oy * TW;
+    *reinterpret_cast<uint4*>(
+        out + (((size_t)img * H4 + r0 + oy) * W4 + c0 + ox) * C2 + q * 8) =
+        chunk(oy, ox, q);
+  }
+}
+
+template <int STAGE>
 __global__ void __launch_bounds__(NTHREADS)
 front_kernel(const bf16* __restrict__ x, int H, int W,
              const float* __restrict__ w0, const float* __restrict__ b0,
@@ -215,6 +251,20 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
     }
   }
   __syncthreads();
+  if constexpr (STAGE == DMA) {
+    // plane p = 2*rho + pi of position (oy, ox) is s2d position
+    // (2*oy + rho, 2*ox + pi) of the tile origin (-4, -4): 12 channels
+    // (chunk 2p: 0-7, chunk 2p+1: 8-11 and four zeros).
+    const bf16* z = region_a;
+    store_tile(out, img, r0, c0, H4, W4, [&](int oy, int ox, int q) {
+      const int p = q >> 1;
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(
+          z + ((2 * oy + (p >> 1) + 4) * ZW + 2 * ox + (p & 1) + 4) * C0);
+      return (q & 1) ? make_uint4(src[4], src[5], 0u, 0u)
+                     : make_uint4(src[0], src[1], src[2], src[3]);
+    });
+    return;
+  }
 
   // 2. Stem, rows [2*r0-3, +SH), cols [2*c0-3, +SW) of the (H/2, W/2) grid.
   {
@@ -228,6 +278,16 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
         });
   }
   __syncthreads();
+  if constexpr (STAGE == STEM) {
+    // stem rows 2*(r0+oy) and cols 2*(c0+ox) + half of the tile origin
+    // (2*r0-3, 2*c0-3); chunks 0-3 the even column, 4-7 the odd one.
+    const bf16* s = region_b;
+    store_tile(out, img, r0, c0, H4, W4, [&](int oy, int ox, int q) {
+      return load8_shared(
+          s + ((2 * oy + 3) * SW + 2 * ox + 3 + (q >> 2)) * CS1 + (q & 3) * 8);
+    });
+    return;
+  }
 
   // 3. Down, rows [r0-1, +DH), cols [c0-1, +DW) of the (H/4, W/4) grid.
   const int dy0 = r0 - 1, dx0 = c0 - 1;
@@ -242,6 +302,13 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
                       in_c3_domain(oy, ox));
       });
   __syncthreads();
+  if constexpr (STAGE == DOWN) {
+    // the interior of the down tile, origin (r0-1, c0-1)
+    store_tile(out, img, r0, c0, H4, W4, [&](int oy, int ox, int q) {
+      return load8_shared(d + ((oy + 1) * DW + ox + 1) * CS2 + q * 8);
+    });
+    return;
+  }
 
   // 4. C3 cv1 | cv2 as one 64->64 1x1 over the haloed down tile -> a.
   bf16* a = region_b;
@@ -292,6 +359,38 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
       });
 }
 
+// One instance per stage, indexed by Stage.
+typedef void (*FrontKernel)(const bf16*, int, int, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, bf16*);
+constexpr FrontKernel kFrontKernels[] = {front_kernel<DMA>, front_kernel<STEM>,
+                                         front_kernel<DOWN>, front_kernel<FULL>};
+
+int launch_front(int stage, const void* x, const void* w0, const void* b0,
+                 const void* w1, const void* b1, const void* w12,
+                 const void* b12, const void* wm1, const void* bm1,
+                 const void* wm2, const void* bm2, const void* w3,
+                 const void* b3, void* out, int batch, int height, int width,
+                 void* stream) {
+  if (stage < DMA || stage > FULL || batch <= 0 || batch > 65535 ||
+      height <= 0 || width <= 0 || height % 32 != 0 || width % 64 != 0)
+    return (int)cudaErrorInvalidValue;
+  const FrontKernel kernel = kFrontKernels[stage];
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(width / 4 / TW, height / 4 / TH, batch);
+  kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const bf16*)x, height, width, (const float*)w0, (const float*)b0,
+      (const float*)w1, (const float*)b1, (const float*)w12,
+      (const float*)b12, (const float*)wm1, (const float*)bm1,
+      (const float*)wm2, (const float*)bm2, (const float*)w3,
+      (const float*)b3, (bf16*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches K1 on `stream` and returns cudaGetLastError() after the launch
@@ -304,20 +403,21 @@ extern "C" int lpr_yolo_front_bf16(
     const void* bm1, const void* wm2, const void* bm2, const void* w3,
     const void* b3, void* out, int batch, int height, int width,
     void* stream) {
-  if (batch <= 0 || batch > 65535 || height <= 0 || width <= 0 ||
-      height % 32 != 0 || width % 64 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(width / 4 / TW, height / 4 / TH, batch);
-  front_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)x, height, width, (const float*)w0, (const float*)b0,
-      (const float*)w1, (const float*)b1, (const float*)w12,
-      (const float*)b12, (const float*)wm1, (const float*)bm1,
-      (const float*)wm2, (const float*)bm2, (const float*)w3,
-      (const float*)b3, (bf16*)out);
-  return (int)cudaGetLastError();
+  return launch_front(FULL, x, w0, b0, w1, b1, w12, b12, wm1, bm1, wm2, bm2,
+                      w3, b3, out, batch, height, width, stream);
+}
+
+// Launches the stage variant `stage` (0 dma, 1 stem, 2 down, 3 full = K1)
+// with lpr_yolo_front_bf16's arguments; cudaErrorInvalidValue for another
+// stage.
+extern "C" int lpr_yolo_front_stage_bf16(
+    const void* x, const void* w0, const void* b0, const void* w1,
+    const void* b1, const void* w12, const void* b12, const void* wm1,
+    const void* bm1, const void* wm2, const void* bm2, const void* w3,
+    const void* b3, void* out, int batch, int height, int width, int stage,
+    void* stream) {
+  return launch_front(stage, x, w0, b0, w1, b1, w12, b12, wm1, bm1, wm2, bm2,
+                      w3, b3, out, batch, height, width, stream);
 }
 
 // Dynamic shared memory per block, for reports.

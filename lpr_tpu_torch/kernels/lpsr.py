@@ -81,17 +81,25 @@ class LpsrPacked:
         return self.buf[off:off + math.prod(shape)].view(shape)
 
 
+def lpsr_kernel_takes(cfg) -> bool:
+    """Whether the kernel takes an
+    :class:`~lpr_tpu_torch.models.lpsr.LPSRConfig`: only the production
+    configuration (3 -> 1 channels, 32 features, growth 16, 4 blocks of 4
+    layers, expansion 4, 5x5 autoencoder kernels)."""
+    return (cfg.num_channels, cfg.num_features, cfg.growth_rate,
+            cfg.num_blocks, cfg.num_layers, cfg.out_channels, cfg.expansion,
+            cfg.ae_kernel) == (3, 32, 16, 4, 4, 1, 4, 5)
+
+
 def lpsr_pack(model) -> LpsrPacked:
-    """Pack a :class:`~lpr_tpu_torch.models.lpsr.LPSR` (the production
-    configuration: 3 -> 1 channels, 32 features, growth 16, 4 blocks of 4
-    layers) into an :class:`LpsrPacked` on the model's device, holding the
-    model's own values (a bf16 model packs bf16-representable weights);
-    ``alpha`` is folded into each RDB's ``lff``.  Raises ValueError on
-    another configuration."""
+    """Pack a :class:`~lpr_tpu_torch.models.lpsr.LPSR` whose configuration
+    the kernel takes (:func:`lpsr_kernel_takes`) into an
+    :class:`LpsrPacked` on the model's device, holding the model's own
+    values (a bf16 model packs bf16-representable weights); ``alpha`` is
+    folded into each RDB's ``lff``.  Raises ValueError on another
+    configuration."""
     cfg = model.cfg
-    if (cfg.num_channels, cfg.num_features, cfg.growth_rate, cfg.num_blocks,
-            cfg.num_layers, cfg.out_channels, cfg.expansion,
-            cfg.ae_kernel) != (3, 32, 16, 4, 4, 1, 4, 5):
+    if not lpsr_kernel_takes(cfg):
         raise ValueError(f"the LPSR kernel takes the production "
                          f"configuration, not {cfg}")
 

@@ -12,6 +12,11 @@
 - :func:`front_plain` — the same function as a chain of ``F.conv2d`` +
   SiLU, reading the same packed weights.  The CPU tests use it, and the
   chip check holds the kernel against it.
+- :func:`front_stage` / :func:`front_stage_plain` — K1 cut after one of
+  its :data:`STAGES` (the port of ``tools/probe_front_stages.py``
+  ``make_variant``): the same kernel source, one instance per stage, and
+  the plain chain stopped at the same point.  They show where K1's time
+  goes (``lpr_tpu_torch/tools/probe_front_stages.py``).
 
 The TPU kernel's quarter-grid parity planes, lane padding and blocking are
 TPU layout, not part of the function, and are not carried over.
@@ -44,6 +49,17 @@ TOL_INTERIOR_MEAN = 0.004
 # Order of the packed tensors in the C launcher's argument list.
 PACK_KEYS = ("w0", "b0", "w1", "b1", "w12", "b12", "wm1", "bm1", "wm2",
              "bm2", "w3", "b3")
+
+# K1's stage variants, in the order of the kernel's enum Stage: the staged
+# space-to-depth input, the stem, the down conv, and all of K1.  Each writes
+# K1's output shape (B, H/4, W/4, 64) at output position (y, x):
+#   dma   plane p = 2*rho + pi in channels p*16 .. p*16+11: the S2D input at
+#         (2y + rho, 2x + pi), channel c*4 + i*2 + j; channels p*16+12..15
+#         zero;
+#   stem  stem(2y, 2x) in channels 0-31 and stem(2y, 2x+1) in 32-63;
+#   down  down(y, x);
+#   full  K1's output.
+STAGES = ("dma", "stem", "down", "full")
 
 
 def front_geom(h: int, w: int) -> Tuple[int, int]:
@@ -104,14 +120,10 @@ def front_pack(model) -> Dict[str, Tensor]:
     return {k: v.contiguous().clone() for k, v in packed.items()}
 
 
-def front_plain(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
-    """The plain PyTorch version: letterboxed frames (B, H, W, 3) ->
-    (B, H/4, W/4, 64) in ``x``'s dtype.
-
-    It rounds where the kernel (and the TPU kernel) rounds: each conv, its
-    bias and SiLU in float32 over the stored inputs, each layer's output
-    stored in ``x``'s dtype, the residual sum rounded once.  For float32
-    input that is a plain float32 chain."""
+def _chain(x: Tensor, packed: Dict[str, Tensor], stop: str) -> Tensor:
+    """front_plain's layers in order, stopped after stage ``stop``: the
+    space-to-depth input (dma), the stem (stem), the down conv (down) or
+    the C3 output (full), NCHW in ``x``'s dtype."""
     dt = x.dtype
 
     def conv(z, w, b, stride=1, padding=0):
@@ -123,14 +135,48 @@ def front_plain(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
 
     p = packed
     z = F.pixel_unshuffle(x.permute(0, 3, 1, 2), 2)
+    if stop == "dma":
+        return z
     s = conv(z, p["w0"], p["b0"], padding=1)
+    if stop == "stem":
+        return s
     d = conv(s, p["w1"], p["b1"], stride=2, padding=1)
+    if stop == "down":
+        return d
     a = conv(d, p["w12"], p["b12"])
     a1, a2 = a[:, :32], a[:, 32:]
     c = conv(conv(a1, p["wm1"], p["bm1"]), p["wm2"], p["bm2"], padding=1)
     mid = (c.float() + a1.float()).to(dt)
-    out = conv(torch.cat([mid, a2], 1), p["w3"], p["b3"])
-    return out.permute(0, 2, 3, 1)
+    return conv(torch.cat([mid, a2], 1), p["w3"], p["b3"])
+
+
+def front_plain(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
+    """The plain PyTorch version: letterboxed frames (B, H, W, 3) ->
+    (B, H/4, W/4, 64) in ``x``'s dtype.
+
+    It rounds where the kernel (and the TPU kernel) rounds: each conv, its
+    bias and SiLU in float32 over the stored inputs, each layer's output
+    stored in ``x``'s dtype, the residual sum rounded once.  For float32
+    input that is a plain float32 chain."""
+    return _chain(x, packed, "full").permute(0, 2, 3, 1)
+
+
+def front_stage_plain(x: Tensor, packed: Dict[str, Tensor],
+                      stage: str) -> Tensor:
+    """The plain version of stage variant ``stage`` (:data:`STAGES`):
+    frames (B, H, W, 3) -> (B, H/4, W/4, 64) in ``x``'s dtype, laid out as
+    :data:`STAGES` describes, from :func:`front_plain`'s own chain."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    t = _chain(x, packed, stage)
+    if stage == "dma":                         # (B, 12, H/2, W/2)
+        B, C, h2, w2 = t.shape
+        t = t.reshape(B, C, h2 // 2, 2, w2 // 2, 2)      # b k y rho x pi
+        t = F.pad(t.permute(0, 2, 4, 3, 5, 1), (0, 4))   # b y x rho pi 16
+        return t.reshape(B, h2 // 2, w2 // 2, 64)
+    if stage == "stem":                        # (B, 32, H/2, W/2)
+        t = torch.cat([t[:, :, 0::2, 0::2], t[:, :, 0::2, 1::2]], 1)
+    return t.permute(0, 2, 3, 1)
 
 
 def front_errors(got: Tensor, ref: Tensor) -> Tuple[float, float, float]:
@@ -145,14 +191,52 @@ def front_errors(got: Tensor, ref: Tensor) -> Tuple[float, float, float]:
 
 
 @functools.cache
-def _launcher():
+def _launchers():
     from lpr_tpu_torch.kernels._build import library
 
-    fn = library("yolo_front").lpr_yolo_front_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = library("yolo_front")
+    lib.lpr_yolo_front_bf16.argtypes = ([ctypes.c_void_p] * 14
+                                        + [ctypes.c_int] * 3
+                                        + [ctypes.c_void_p])
+    lib.lpr_yolo_front_stage_bf16.argtypes = ([ctypes.c_void_p] * 14
+                                              + [ctypes.c_int] * 4
+                                              + [ctypes.c_void_p])
+    for fn in (lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16):
+        fn.restype = ctypes.c_int
+    return lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16
+
+
+def _launch(x: Tensor, packed: Dict[str, Tensor], name: str,
+            stage=None) -> Tensor:
+    """Checks a CUDA launch of K1 (``stage`` None) or of a stage variant,
+    launches it on the current stream and returns the output."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name} kernel takes bfloat16, got {x.dtype}")
+    if x.dim() != 4 or x.shape[3] != 3:
+        raise ValueError(f"expected (B, H, W, 3), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} kernel takes a contiguous NHWC tensor")
+    B, H, W, _ = x.shape
+    h4, w4 = front_geom(H, W)
+    for k in PACK_KEYS:
+        t = packed[k]
+        if (t.device != x.device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"packed[{k!r}] must be a contiguous, 16-byte "
+                             f"aligned float32 tensor on {x.device}")
+    out = torch.empty((B, h4, w4, 64), dtype=torch.bfloat16, device=x.device)
+    k1, variant = _launchers()
+    args = [x.data_ptr(), *[packed[k].data_ptr() for k in PACK_KEYS],
+            out.data_ptr(), B, H, W]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = (k1(*args, stream) if stage is None
+               else variant(*args, STAGES.index(stage), stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return out
 
 
 def yolo_front(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
@@ -164,35 +248,32 @@ def yolo_front(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
     to ``yolo_front.launches``; a CPU tensor takes :func:`front_plain`."""
     if x.device.type == "cpu":
         return front_plain(x, packed)
-    if x.device.type != "cuda":
-        raise ValueError(f"yolo_front runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"yolo_front kernel takes bfloat16, got {x.dtype}")
-    if x.dim() != 4 or x.shape[3] != 3:
-        raise ValueError(f"expected (B, H, W, 3), got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("yolo_front kernel takes a contiguous NHWC tensor")
-    B, H, W, _ = x.shape
-    h4, w4 = front_geom(H, W)
-    for k in PACK_KEYS:
-        t = packed[k]
-        if (t.device != x.device or t.dtype != torch.float32
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"packed[{k!r}] must be a contiguous, 16-byte "
-                             f"aligned float32 tensor on {x.device}")
-    out = torch.empty((B, h4, w4, 64), dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launcher()(x.data_ptr(),
-                          *[packed[k].data_ptr() for k in PACK_KEYS],
-                          out.data_ptr(), B, H, W, stream)
-    if err != 0:
-        raise RuntimeError(f"yolo_front kernel launch failed: cudaError {err}")
+    out = _launch(x, packed, "yolo_front")
     yolo_front.launches += 1
     return out
 
 
 yolo_front.launches = 0
+
+
+def front_stage(x: Tensor, packed: Dict[str, Tensor], stage: str) -> Tensor:
+    """K1's stage variant ``stage`` (:data:`STAGES`) on letterboxed frames
+    (B, H, W, 3) -> (B, H/4, W/4, 64).
+
+    A CUDA tensor launches that instance of the K1 kernel on the current
+    stream (the checks of :func:`yolo_front`) and adds one to
+    ``front_stage.launches[stage]``; a CPU tensor takes
+    :func:`front_stage_plain`.  ``"full"`` runs K1's own instance."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    if x.device.type == "cpu":
+        return front_stage_plain(x, packed, stage)
+    out = _launch(x, packed, f"front_stage[{stage}]", stage)
+    front_stage.launches[stage] += 1
+    return out
+
+
+front_stage.launches = dict.fromkeys(STAGES, 0)
 
 
 def front_work(batch: int, h: int, w: int) -> Tuple[int, int]:
@@ -209,4 +290,27 @@ def front_work(batch: int, h: int, w: int) -> Tuple[int, int]:
     weights = 4 * (9 * 12 * 32 + 32 + 9 * 32 * 64 + 64 + 64 * 64 + 64
                    + 32 * 32 + 32 + 9 * 32 * 32 + 32 + 64 * 64 + 64)
     nbytes = batch * (h * w * 3 * 2 + h4 * w4 * 64 * 2) + weights
+    return 2 * macs * batch, nbytes
+
+
+def front_stage_work(stage: str, batch: int, h: int,
+                     w: int) -> Tuple[int, int]:
+    """(floating-point operations, bytes) of stage variant ``stage``: the
+    convolutions it runs (2 x multiply-adds at their exact output sizes,
+    cumulative: stem, + down, + the C3 = :func:`front_work`); every variant
+    reads the input and writes K1's output shape once, plus the fp32
+    weights of the layers it runs."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    if stage == "full":
+        return front_work(batch, h, w)
+    h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
+    macs, weights = 0, 0
+    if stage in ("stem", "down"):
+        macs += h2 * w2 * 9 * 12 * 32
+        weights += 9 * 12 * 32 + 32
+    if stage == "down":
+        macs += h4 * w4 * 9 * 32 * 64
+        weights += 9 * 32 * 64 + 64
+    nbytes = batch * (h * w * 3 * 2 + h4 * w4 * 64 * 2) + 4 * weights
     return 2 * macs * batch, nbytes

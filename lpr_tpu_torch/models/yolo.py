@@ -346,17 +346,19 @@ class YoloModel(torch.nn.Module):
 
         return self.forward_from(yolo_mid(y, mid), 5)
 
-    def forward_from(self, y, start: int) -> List[Tensor]:
-        """Run layers ``start:`` on ``y``, the output of layer ``start - 1``
-        (kept as that layer's saved output where a later layer reads it;
-        no earlier saved output may be needed)."""
+    def forward_from(self, y, start: int,
+                     stop: Optional[int] = None) -> List[Tensor]:
+        """Run layers ``start:stop`` on ``y``, the output of layer
+        ``start - 1`` (kept as that layer's saved output where a later
+        layer reads it; no earlier saved output may be needed), and return
+        the last one's output."""
         if any(j < start - 1 for j in self.save):
             raise ValueError(f"a layer before {start - 1} is read later")
         saved: Dict[int, Any] = {}
         if start and (start - 1) in self.save:
             saved[start - 1] = y
         n = len(self.layers)
-        for l in self.layers[start:]:
+        for l in self.layers[start:stop]:
             if l.f != -1:
                 if isinstance(l.f, int):
                     y = saved[l.f % n]

@@ -5,9 +5,10 @@ One step over a batch of frames, all on the device: letterbox, the plate
 detector (layers 0-2 through the K1 kernel, and layers 3-4 through K3 when
 ``fused_mid`` is set), lazy-decode NMS, the top plates by area, per-plate
 skew estimate and rotated crops (interpolation matrices), the 2-row ->
-1-row reshape, LPSR (on a card always the K2 kernel, on the CPU its plain
-version), the char OCR on the raw crop and on the SR canvas, and char NMS.
-Only the small fixed-shape outputs go to the host, where
+1-row reshape, LPSR (for the production configuration the K2 kernel on a
+card and its plain version on the CPU; any other configuration runs
+``LPSR.forward``), the char OCR on the raw crop and on the SR canvas, and
+char NMS.  Only the small fixed-shape outputs go to the host, where
 :meth:`PlateRecognizer.assemble` builds the strings.
 
 The step keeps the JAX step's cast points: frames are cast to
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from lpr_tpu_torch.device import DeviceLike, resolve_device
-from lpr_tpu_torch.kernels.lpsr import lpsr_fused, lpsr_pack
+from lpr_tpu_torch.kernels.lpsr import lpsr_fused, lpsr_kernel_takes, lpsr_pack
 from lpr_tpu_torch.models.lpsr import LPSR
 from lpr_tpu_torch.models.yolo import YoloModel
 from lpr_tpu_torch.ops import image as im
@@ -36,6 +37,15 @@ from lpr_tpu_torch.pipeline.chars import detections_to_string
 Tensor = torch.Tensor
 
 PLATE_CLASS_IDS = (7, 8)  # square / rectangle license plate
+
+# The step's stages, in the order PlateRecognizer.step_raw runs them.
+STEP_STAGES = ("upload", "letterbox+norm", "plate detector", "plate NMS",
+               "top plates", "crop/deskew geometry", "LPSR", "OCR canvases",
+               "char OCR", "char NMS")
+
+
+def _call(name: str, fn, *args):
+    return fn(*args)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,8 +147,10 @@ class PlateRecognizer:
                 raise ValueError("fused_mid runs on the fused front's output:"
                                  " set fused_front as well")
             self._mid = mid_pack(self.plate_model)
-        # K2 on a card, its plain version on the CPU (kernels/lpsr.py).
-        self._lpsr = lpsr_pack(self.lpsr_model)
+        # K2 on a card, its plain version on the CPU (kernels/lpsr.py), for
+        # the configuration K2 takes; any other one runs LPSR.forward.
+        self._lpsr = (lpsr_pack(self.lpsr_model)
+                      if lpsr_kernel_takes(self.lpsr_model.cfg) else None)
 
     # ------------------------------------------------------------------
     def _per_plate(self, x: Tensor, boxes: Tensor):
@@ -185,24 +197,34 @@ class PlateRecognizer:
         canv_long = _aspect_canvas(rgb, self.cfg.ocr_hw)
         return torch.where(is_long[:, None, None, None], canv_long, canv_sq)
 
-    @torch.inference_mode()
-    def step_raw(self, frames) -> Dict[str, Any]:
-        """The device step: uint8 frames (B, H, W, 3) (numpy or tensor) ->
-        dict of fixed-shape device tensors (``lpr_tpu``'s ``_step_impl``)."""
-        cfg = self.cfg
+    def _upload(self, frames) -> Tensor:
+        """uint8 frames (numpy or tensor) on the device."""
         if isinstance(frames, np.ndarray):   # torch needs a writable array
             frames = torch.from_numpy(np.require(frames, requirements="W"))
-        frames = frames.to(self.device)
-        B, fh, fw = int(frames.shape[0]), int(frames.shape[1]), int(frames.shape[2])
-        P = cfg.max_plates
-        x = frames.to(cfg.dtype) / 255.0
-        lb, gain, pad = im.letterbox(x, cfg.det_hw, fill=0.0)
-        raws = self.plate_model(lb.contiguous(), front=self._front,
-                                mid=self._mid)
-        det = nms_from_raw(raws, self.plate_model.strides,
-                           self.plate_model.anchors, cfg.det_conf, cfg.iou,
-                           max_det=16, pre_topk=64, multi_label=True,
-                           agnostic=True, class_ids=self.plate_class_ids)
+        return frames.to(self.device)
+
+    def _letterbox(self, frames: Tensor):
+        """(frames in cfg.dtype / 255, letterboxed detector input, gain,
+        pad)."""
+        x = frames.to(self.cfg.dtype) / 255.0
+        lb, gain, pad = im.letterbox(x, self.cfg.det_hw, fill=0.0)
+        return x, lb.contiguous(), gain, pad
+
+    def _detect(self, lb: Tensor) -> List[Tensor]:
+        return self.plate_model(lb, front=self._front, mid=self._mid)
+
+    def _plate_nms(self, raws: List[Tensor]) -> Dict[str, Tensor]:
+        return nms_from_raw(raws, self.plate_model.strides,
+                            self.plate_model.anchors, self.cfg.det_conf,
+                            self.cfg.iou, max_det=16, pre_topk=64,
+                            multi_label=True, agnostic=True,
+                            class_ids=self.plate_class_ids)
+
+    def _top_plates(self, det: Dict[str, Tensor], gain: Tensor, pad: Tensor,
+                    fh: int, fw: int):
+        """The top ``max_plates`` detections by area, boxes in frame
+        pixels: (boxes, scores, classes, areas)."""
+        P = self.cfg.max_plates
         boxes = clip_boxes((det["boxes"] - torch.cat([pad, pad])) / gain,
                            fh, fw)
         areas = ((boxes[..., 2] - boxes[..., 0])
@@ -212,26 +234,68 @@ class PlateRecognizer:
         top_areas, top_idx = torch.sort(areas, dim=1, descending=True,
                                         stable=True)
         top_areas, top_idx = top_areas[:, :P], top_idx[:, :P]
-        sel_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
-        sel_scores = torch.gather(det["scores"], 1, top_idx)
-        sel_classes = torch.gather(det["classes"], 1, top_idx)
+        sel_boxes = torch.gather(boxes, 1,
+                                 top_idx[..., None].expand(-1, -1, 4))
+        return (sel_boxes, torch.gather(det["scores"], 1, top_idx),
+                torch.gather(det["classes"], 1, top_idx), top_areas)
 
-        long_img, ocr_orig, is_long = self._per_plate(x, sel_boxes)
-        sh, sw = cfg.sr_hw
-        oh, ow = cfg.ocr_hw
-        sr_out = lpsr_fused(long_img.reshape(B * P, sh, sw, 3)
-                            .to(cfg.dtype).contiguous(), self._lpsr)
-        ocr_sr = self._sr_to_ocr_canvas(sr_out, is_long.reshape(B * P))
-        if cfg.ocr_on_original:
-            ocr_in = torch.cat([ocr_orig.reshape(B * P, oh, ow, 3).float(),
+    def _enhance(self, long_img: Tensor) -> Tensor:
+        """LPSR on the (B, P, sh, sw, 3) crops -> (B*P, sh, sw, 1) float32."""
+        sh, sw = self.cfg.sr_hw
+        sr_in = (long_img.reshape(-1, sh, sw, 3).to(self.cfg.dtype)
+                 .contiguous())
+        if self._lpsr is not None:
+            return lpsr_fused(sr_in, self._lpsr)
+        return self.lpsr_model(sr_in).float()
+
+    def _ocr_input(self, sr_out: Tensor, ocr_orig: Tensor,
+                   is_long: Tensor) -> Tensor:
+        """The char OCR batch: the raw crops (with ``ocr_on_original``)
+        then the SR canvases, in cfg.dtype."""
+        oh, ow = self.cfg.ocr_hw
+        ocr_sr = self._sr_to_ocr_canvas(sr_out, is_long.reshape(-1))
+        if self.cfg.ocr_on_original:
+            ocr_in = torch.cat([ocr_orig.reshape(-1, oh, ow, 3).float(),
                                 ocr_sr], 0)
         else:
             ocr_in = ocr_sr
-        cout = self.char_model(ocr_in.to(cfg.dtype).contiguous())
-        cdet = nms_from_raw(cout, self.char_model.strides,
+        return ocr_in.to(self.cfg.dtype).contiguous()
+
+    def _char_nms(self, cout: List[Tensor]) -> Dict[str, Tensor]:
+        cfg = self.cfg
+        return nms_from_raw(cout, self.char_model.strides,
                             self.char_model.anchors, cfg.ocr_conf, cfg.iou,
                             max_det=cfg.max_chars, pre_topk=cfg.char_pre_topk,
                             multi_label=True, agnostic=True)
+
+    @torch.inference_mode()
+    def step_raw(self, frames, run=None) -> Dict[str, Any]:
+        """The device step: uint8 frames (B, H, W, 3) (numpy or tensor) ->
+        dict of fixed-shape device tensors (``lpr_tpu``'s ``_step_impl``).
+
+        The step is the stages of :data:`STEP_STAGES`, in that order.  With
+        ``run``, each stage is called as ``run(name, fn, *args)``, which
+        must return ``fn(*args)``: how
+        ``lpr_tpu_torch/tools/profile_stages.py`` measures each stage on
+        the input the step gave it."""
+        run = run or _call
+        cfg = self.cfg
+        x = run("upload", self._upload, frames)
+        B, fh, fw = int(x.shape[0]), int(x.shape[1]), int(x.shape[2])
+        P = cfg.max_plates
+        x, lb, gain, pad = run("letterbox+norm", self._letterbox, x)
+        raws = run("plate detector", self._detect, lb)
+        det = run("plate NMS", self._plate_nms, raws)
+        sel_boxes, sel_scores, sel_classes, top_areas = run(
+            "top plates", self._top_plates, det, gain, pad, fh, fw)
+        long_img, ocr_orig, is_long = run(
+            "crop/deskew geometry", self._per_plate, x, sel_boxes)
+        sr_out = run("LPSR", self._enhance, long_img)
+        ocr_in = run("OCR canvases", self._ocr_input, sr_out, ocr_orig,
+                     is_long)
+        cout = run("char OCR", self.char_model, ocr_in)
+        cdet = run("char NMS", self._char_nms, cout)
+        sh, sw = cfg.sr_hw
         n_orig = B * P if cfg.ocr_on_original else 0
 
         def split(lo, hi):

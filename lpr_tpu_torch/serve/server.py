@@ -82,12 +82,12 @@ class ServerStats:
         return {
             "requests": self.requests,
             "batches": self.batches,
-            "mean_batch": self.mean_batch,
+            "mean_batch": round(self.mean_batch, 2),
             "frames_padded": self.frames_padded,
-            "throughput_fps": self.throughput_fps,
-            "latency_ms_mean": self.mean_latency_ms,
-            "latency_ms_p50": self.latency_ms(50),
-            "latency_ms_p99": self.latency_ms(99),
+            "throughput_fps": round(self.throughput_fps, 2),
+            "latency_ms_mean": round(self.mean_latency_ms, 2),
+            "latency_ms_p50": round(self.latency_ms(50), 2),
+            "latency_ms_p99": round(self.latency_ms(99), 2),
         }
 
 

@@ -1,2 +1,3 @@
 """Tools for running and measuring the port on the card: synthetic frames
-made with numpy, and a step profiler."""
+made with numpy, and the profilers (by kernel, by stage of the step, by
+detector layer, K1 and K2 by internal stage) with their shared timing."""

@@ -1,0 +1,151 @@
+"""Timing shared by the port's measuring tools.
+
+- :func:`card` — the card's name and power limit, as ``nvidia-smi`` gives
+  them, to print beside every number.
+- :func:`event_ms` — device time per call from CUDA events around a run of
+  calls (the host clock around a synchronize on the CPU).
+- :func:`host_ms` — wall-clock time per call around a run of calls, ended
+  by ``torch.cuda.synchronize()``: what a host-bound caller waits.
+- :func:`profile_window` — one ``torch.profiler`` window over a run of
+  calls: device-busy ms per call (the sum of kernel times), kernel
+  launches per call, and the kernels by device time.
+- :func:`bound_ms` — the least time for a given work on an H100.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+# H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
+
+
+def card(device: torch.device) -> str:
+    """``name, power limit`` of the first card, or a note that the run is
+    on the CPU."""
+    if device.type != "cuda":
+        return "CPU (no card; device time not measured)"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def bound_ms(work: Tuple[int, int]) -> Tuple[float, str]:
+    """(ms, "operations" or "bytes") of (flops, bytes) at the bf16 peak and
+    the memory rate: the larger of the two times."""
+    flops, nbytes = work
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def event_ms(fn: Callable[[], object], iters: int,
+             device: torch.device = torch.device("cuda"),
+             warmup: int = 3) -> float:
+    """Mean time of fn() over ``iters`` calls after ``warmup`` calls: CUDA
+    events on the current stream on a card, the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        return host_ms(fn, iters, device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn: Callable[[], object], calls: int,
+            device: torch.device) -> float:
+    """Wall-clock ms per call over ``calls`` calls, from a synchronized
+    start to a synchronize after the last."""
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync(device)
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+class Window:
+    """What one profiled run of calls saw on the device: ``busy_ms`` and
+    ``launches`` per call (None when the profiler saw no device event, as
+    on the CPU), and ``kernels``: (device ms per call, launches per call,
+    name), most device time first."""
+
+    def __init__(self, busy_ms: Optional[float], launches: Optional[float],
+                 kernels: List[Tuple[float, float, str]]):
+        self.busy_ms = busy_ms
+        self.launches = launches
+        self.kernels = kernels
+
+
+_MARK = "lpr_tpu_torch.profile_window"
+# Idle time between the uncounted first call and the counted ones; device
+# events are split at its middle.
+_GAP_S = 0.01
+
+
+def profile_window(fn: Callable[[], object], calls: int,
+                   device: torch.device) -> Window:
+    """Runs fn() once, waits ``_GAP_S``, then runs it ``calls`` times inside
+    a marked range, under ``torch.profiler`` (CPU + CUDA), and sums per
+    call the device events that start after the middle of the wait
+    (kernels and copies; user annotations are left out).
+
+    On an H100 a window lost its first device event now and then (4.8
+    launches per call where every call launches 5), and a kernel launched
+    just after the mark was once stamped before it: the device's time
+    stamps can run ahead of the host's.  The uncounted first call takes the
+    loss, and splitting in the idle gap tolerates an offset of up to half
+    of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+        sync(device)
+        time.sleep(_GAP_S)
+        with record_function(_MARK):
+            for _ in range(calls):
+                fn()
+            sync(device)
+    evts = prof.events()
+    t0 = min(e.time_range.start for e in evts
+             if e.name == _MARK and e.device_type == DeviceType.CPU
+             ) - 1e6 * _GAP_S / 2
+    by_name = {}
+    for e in evts:
+        if (e.device_type == DeviceType.CUDA and e.time_range.start >= t0
+                and e.name != _MARK
+                and not getattr(e, "is_user_annotation", False)):
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    if not by_name:
+        return Window(None, None, [])
+    kernels = sorted(((us / 1e3 / calls, n / calls, name)
+                      for name, (us, n) in by_name.items()), reverse=True)
+    return Window(sum(k[0] for k in kernels), sum(k[1] for k in kernels),
+                  kernels)
+
+
+def fmt(v: Optional[float], spec: str = ".3f") -> str:
+    """A measured number, or "not measured"."""
+    return "not measured" if v is None else format(v, spec)

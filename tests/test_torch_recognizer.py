@@ -154,3 +154,34 @@ def test_recognizer_rejects_what_the_front_kernel_cannot_take():
         trec.PlateRecognizer(plate, char, lpsr, trec.PipelineConfig(
             det_hw=(192, 320), dtype=torch.float32, fused_front=False,
             fused_mid=True), device="cpu")
+
+
+def test_slice_with_a_small_lpsr_configuration_matches_jax():
+    """A non-production LPSRConfig (the one __graft_entry__ builds) with
+    lpsr_init's random weights carried across by params_from_jax: the port
+    does not pack K2 for it, runs LPSR.forward, and matches the JAX
+    recognizer as the default configuration does."""
+    from lpr_tpu_torch.kernels.lpsr import lpsr_kernel_takes
+    from lpr_tpu_torch.weights.checkpoint import params_from_jax
+
+    small = dict(num_features=8, growth_rate=4, num_blocks=2, num_layers=2)
+    jcfg, tcfg = jlpsr.LPSRConfig(**small), tlpsr.LPSRConfig(**small)
+    params = jax.device_get(jax.jit(lambda k: jlpsr.lpsr_init(k, jcfg))(
+        jax.random.PRNGKey(1)))
+    det_hw = (192, 320)
+    plate, pp = torch_ref.plate()
+    char, cp, names = torch_ref.char()
+    jr = jrec.PlateRecognizer(
+        plate, pp, char, cp, params, jcfg,
+        jrec.PipelineConfig(det_hw=det_hw, dtype=jnp.float32),
+        char_names=names)
+    tchar, names = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    tr = trec.PlateRecognizer(
+        tyolo.load_plate_detector(PLATE, device="cpu"), tchar,
+        tlpsr.LPSR(params_from_jax(params), tcfg),
+        trec.PipelineConfig(det_hw=det_hw, dtype=torch.float32),
+        char_names=names, device="cpu")
+    assert not lpsr_kernel_takes(tcfg) and tr._lpsr is None
+    assert lpsr_kernel_takes(tlpsr.LPSRConfig())
+    results = compare(jr, tr, synth_frames(2, (180, 320), seed=3))
+    assert sum(len(f) for f in results) >= 2

@@ -107,3 +107,28 @@ def test_errors_resolve_the_futures():
         fut = srv.submit(_frames(1)[0])
         with pytest.raises(RuntimeError, match="boom"):
             fut.result(timeout=TIMEOUT_S)
+
+
+def test_summary_rounds_as_the_jax_server_does():
+    """ServerStats.summary() rounds mean_batch, throughput_fps and the three
+    latencies to 2 decimals, field for field as lpr_tpu's."""
+    from lpr_tpu.serve.server import ServerStats as JaxStats
+    from lpr_tpu_torch.serve.server import ServerStats
+
+    lat = [0.0123456, 0.0456789, 0.1011121, 0.0333333]
+    stats = []
+    for cls in (JaxStats, ServerStats):
+        s = cls()
+        for v in lat:
+            s.record(v)
+        s.batches, s.frames_padded = 3, 2
+        s.started_s -= 3.0     # a throughput with more than 2 decimals
+        stats.append(s.summary())
+    jax_s, port_s = stats
+    assert sorted(port_s) == sorted(jax_s)
+    for k in ("requests", "batches", "frames_padded", "mean_batch",
+              "latency_ms_mean", "latency_ms_p50", "latency_ms_p99"):
+        assert port_s[k] == jax_s[k], k
+    assert port_s["mean_batch"] == 1.33 and port_s["latency_ms_p99"] == 101.11
+    assert port_s["throughput_fps"] == round(port_s["throughput_fps"], 2)
+    assert abs(port_s["throughput_fps"] - jax_s["throughput_fps"]) < 0.05
