@@ -10,11 +10,15 @@ Phases, each printing one line with its elapsed seconds:
 2. build   — every kernel in lpr_tpu_torch/csrc (yolo_front K1 and its
    K4 stage variants, lpsr K2, yolo_mid K3) built with nvcc (one process
    per source, all started together), loaded with ctypes; prints nvcc's
-   register / shared-memory / spill report.
+   register / shared-memory / spill report and the HMMA (tensor-core mma)
+   instructions in lpsr_kernel<bf16> by cuobjdump -sass (fails if none).
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes (K1 on frames, K2 on 24 plate crops, K3 on K1's
-   output for 8 frames; the real weights), with the tolerance stated beside
-   it, then both timed with CUDA events (plain, kernel, kernel, plain).
+   the main path's shapes (K1 on frames, K2 on 24 plate crops in bf16 and
+   float32, K3 on K1's output for 8 frames; the real weights), with the
+   tolerance stated beside it, then both timed with CUDA events (plain,
+   kernel, kernel, plain).  K2 also at the further shapes of
+   tests/test_torch_lpsr_kernel.py in bf16, and beside it LPSR.forward in
+   bf16, the composed library yardstick (its library_ms).
 4. probe   — K4, K1's four stage variants (dma, stem, down, full; one
    instance each of the K1 source): the probe tool's timing of them at
    (8, 736, 1280, 3) (K4's path, with its launch counts), then each
@@ -53,10 +57,11 @@ import subprocess
 import sys
 import time
 
-# A whole run, the three nvcc builds (36-53 s, all started together)
-# included, measured 67-102 s on an H100; the watchdog turns a hang into a
-# failing exit at about three times the slowest.
-WATCHDOG_S = 300
+# A whole run, the three nvcc builds (all started together; K2's, the
+# longest, about a minute) included, measured 67-102 s on an H100 before
+# K2's tensor-core stages; the watchdog turns a hang into a failing exit
+# well inside the check's 1200 s.
+WATCHDOG_S = 480
 SEED = 0
 BATCH = 8
 FRAME_HW = (720, 1280)
@@ -67,9 +72,9 @@ CKPT_LPSR = "checkpoints/lpsr_synth_glare/best_model.npz"
 # K1 vs its plain version: lpr_tpu_torch.kernels.yolo_front.TOL_* (0.03 +
 # two bf16 ulps elementwise over the whole tensor, interior mean 0.004).
 # K2 vs its plain version: lpr_tpu_torch.kernels.lpsr.TOL_MAX / TOL_MEAN
-# (bf16: max 2e-2, mean 1e-3 on the sigmoid output).  K3 vs its plain
-# version: lpr_tpu_torch.kernels.yolo_mid.TOL_* (0.05 + two bf16 ulps
-# elementwise, interior mean 0.006).
+# (bf16: max 4e-2, mean 1e-3 on the sigmoid output; float32 1e-4, 1e-5).
+# K3 vs its plain version: lpr_tpu_torch.kernels.yolo_mid.TOL_* (0.05 +
+# two bf16 ulps elementwise, interior mean 0.006).
 # Detector raw head through K1 (and K3) vs through the plain versions
 # (bf16): the kernels' rare one-ulp differences travel through the later
 # bf16 layers; logits reach ~20 in magnitude.
@@ -77,6 +82,9 @@ HEAD_MAX_ERR = 0.5
 HEAD_MEAN_ERR = 0.05
 LPSR_N = BATCH * 3      # plate crops per step: batch x max_plates
 LPSR_HW = (32, 192)
+# K2's further shapes (N, H, W): as tests/test_torch_lpsr_kernel.py's.
+K2_SHAPES = [(1, 32, 192), (7, 32, 192), (2, 16, 96), (2, 48, 200),
+             (3, 8, 64), (1, 8, 400)]
 
 _T0 = time.perf_counter()
 
@@ -116,7 +124,7 @@ def main() -> int:
     from lpr_tpu_torch.kernels import lpsr as kl
     from lpr_tpu_torch.kernels import yolo_front as kf
     from lpr_tpu_torch.kernels import yolo_mid as km
-    from lpr_tpu_torch.tools import _timing
+    from lpr_tpu_torch.tools import _timing, bench_sr_convs
 
     t = time.perf_counter()
     libs = _build.build()
@@ -126,6 +134,17 @@ def main() -> int:
     if sorted(libs) != ["lpsr", "yolo_front", "yolo_mid"]:
         raise AssertionError(f"built {sorted(libs)}")
     smem = {n: getattr(libs[n].cdll, f"lpr_{n}_smem_bytes")() for n in libs}
+    # The tensor cores in K2: HMMA instructions of lpsr_kernel<bf16> (with
+    # the stage functions it calls) and of lpsr_kernel<float>.
+    hmma = _build.sass_counts(libs["lpsr"].path, "HMMA")
+    for fn, c in sorted(hmma.items()):
+        print(f"cuobjdump -sass lpsr: {c} HMMA in {fn}", flush=True)
+    k2_hmma = {dt: sum(c for fn, c in hmma.items() if tag in fn)
+               for dt, tag in (("bf16", "__nv_bfloat16"), ("float", "IfE"))}
+    print(f"K2 HMMA instructions: lpsr_kernel<bf16> {k2_hmma['bf16']}, "
+          f"lpsr_kernel<float> {k2_hmma['float']}", flush=True)
+    if k2_hmma["bf16"] < 1:
+        raise AssertionError("no HMMA in lpsr_kernel<bf16>")
     phase("build", t, f"; {sorted(libs)}; dynamic smem per block {smem} B")
 
     def counts_to_zero():
@@ -195,38 +214,60 @@ def main() -> int:
         "library_ms": None,
     })
 
-    # K2 — the LPSR stage, on the main path's 24 plate crops.
-    lpsr_packed = kl.lpsr_pack(load_lpsr(CKPT_LPSR).to(torch.bfloat16))
+    # K2 — the LPSR stage, on the main path's 24 plate crops (bf16 and
+    # float32), then in bf16 at the shapes where a block owns 0-1 rows of
+    # the quarter grid, M is not a multiple of 16, or a block's rows (48)
+    # or the columns (400) split into slabs.
+    lpsr_bf16 = load_lpsr(CKPT_LPSR).to(torch.bfloat16)
+    lpsr_packed = kl.lpsr_pack(lpsr_bf16)
+    lpsr_packed32 = kl.lpsr_pack(load_lpsr(CKPT_LPSR))
     crops = torch.rand((LPSR_N, *LPSR_HW, 3), generator=gen, device="cuda"
                        ).to(torch.bfloat16)
-    got = kl.lpsr_fused(crops, lpsr_packed)
-    ref = kl.lpsr_plain(crops, lpsr_packed)
-    torch.cuda.synchronize()
-    max_err, mean_err = kl.lpsr_errors(got, ref)
-    tol_max, tol_mean = kl.TOL_MAX[torch.bfloat16], kl.TOL_MEAN[torch.bfloat16]
-    print(f"K2 lpsr_fused vs lpsr_plain ({LPSR_N}, {LPSR_HW[0]}, "
-          f"{LPSR_HW[1]}, 3) bf16: max_abs_err {max_err} (< {tol_max}), "
-          f"mean {mean_err} (< {tol_mean}), finite "
-          f"{bool(torch.isfinite(got).all())}", flush=True)
-    if not (max_err < tol_max and mean_err < tol_mean
-            and torch.isfinite(got).all()):
-        raise AssertionError("K2 disagrees with its plain version")
+    k2_max_err = None
+    for shape, dt in [((LPSR_N, *LPSR_HW), torch.bfloat16),
+                      ((LPSR_N, *LPSR_HW), torch.float32)] + [
+                          (s, torch.bfloat16) for s in K2_SHAPES]:
+        x = (crops if shape == (LPSR_N, *LPSR_HW) else torch.rand(
+            (*shape, 3), generator=gen, device="cuda")).to(dt)
+        pk = lpsr_packed if dt == torch.bfloat16 else lpsr_packed32
+        got = kl.lpsr_fused(x, pk)
+        ref = kl.lpsr_plain(x, pk)
+        torch.cuda.synchronize()
+        max_err, mean_err = kl.lpsr_errors(got, ref)
+        tol_max, tol_mean = kl.TOL_MAX[dt], kl.TOL_MEAN[dt]
+        name = str(dt).replace("torch.", "")
+        print(f"K2 lpsr_fused vs lpsr_plain {(*shape, 3)} {name}: "
+              f"max_abs_err {max_err} (< {tol_max}), mean {mean_err} "
+              f"(< {tol_mean}), finite {bool(torch.isfinite(got).all())}",
+              flush=True)
+        if not (max_err < tol_max and mean_err < tol_mean
+                and torch.isfinite(got).all()):
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"{shape} {name}")
+        if k2_max_err is None:
+            k2_max_err = max_err         # the main path's shape, bf16
     k_ms, plain_ms, runs = timed(lambda: kl.lpsr_fused(crops, lpsr_packed),
                                  lambda: kl.lpsr_plain(crops, lpsr_packed),
                                  iters)
+    # The library yardstick: LPSR.forward in bf16 on the same crops,
+    # composed of many cuDNN and elementwise calls (no single PyTorch call
+    # computes the LPSR forward).
+    with torch.inference_mode():
+        lib_ms = bench_sr_convs.lpsr_forward_ms(lpsr_bf16, crops, iters)
     work = kl.lpsr_work(LPSR_N, *LPSR_HW)
     bound_ms, bound_by = _timing.bound_ms(work)
-    print(f"K2 timing at ({LPSR_N}, {LPSR_HW[0]}, {LPSR_HW[1]}, 3) on "
+    print(f"K2 timing at ({LPSR_N}, {LPSR_HW[0]}, {LPSR_HW[1]}, 3) bf16 on "
           f"{card}: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs "
-          f"{runs}), bound {bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)",
+          f"{runs}), library (composed LPSR.forward bf16) {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)",
           flush=True)
     kernels.append({
         "name": "lpsr", "route": "cuda",
         "source": "lpr_tpu_torch/csrc/lpsr.cu",
         "replaces": "lpr_tpu/ops/pallas/lpsr_kernel.py:235",
-        "launches": None, "max_abs_err": max_err, "ms": k_ms,
+        "launches": None, "max_abs_err": k2_max_err, "ms": k_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": lib_ms,
     })
 
     # K3 — detector layers 3-4, on K1's real output for 8 frames.

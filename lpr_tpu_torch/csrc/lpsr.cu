@@ -29,25 +29,61 @@
 // per-image scratch in device memory (mostly L2-resident); each layer is a
 // stage that writes its own rows, and a cluster barrier (release/acquire at
 // cluster scope, after a device fence) separates stages, so the next stage
-// reads its neighbours' halo rows.  Scratch is read with ld.global.cg (L2,
-// never a stale L1 line).  A convolution stage stages its input rows, halo
-// and zero padding included, in shared memory as float32 channel planes, in
-// channel chunks where they do not fit (96 KB a block, two blocks an SM);
-// the loads are 16-byte vectors, two in flight per thread, since a stage's
-// time went to waiting on one L2 load at a time.  Each thread accumulates 4
-// positions x G output channels, weights read as warp-uniform float4
-// through the read-only cache, and stores 8 channels as one vector.  The
-// CSAR channel mean is reduced by every block of the cluster over the whole
-// image in one fixed order, so all blocks use the same value and a run is
-// deterministic.  Arithmetic is scalar float32 FMA on the CUDA cores;
-// tensor cores, TMA and weight staging are later work.
+// reads its neighbours' halo rows.  Scratch is read through L2 only
+// (ld.global.cg, cp.async.cg: never a stale L1 line).  The CSAR channel
+// mean: each block sums its own rows, and after a cluster sync every block
+// adds the 8 blocks' sums in rank order from their shared memory, so all
+// use the same value and a run is deterministic.
+//
+// Two kinds of convolution stage.  The 23 wide ones (shallowF2, the 8 RDB
+// dense layers and 2 lff, the CSAR in0/in1/sa1/sa2/out twice, gff0, gff1:
+// ~95 % of the multiply-adds; every channel count a multiple of 16, every
+// epilogue plain NHWC) are implicit GEMMs on the tensor cores in the bf16
+// instance (conv_mma): M = the block's output positions, N = cout, K =
+// taps x cin, mma.sync m16n8k16 bf16 -> float32 (mma_conv.cuh).  The input
+// is staged as bf16 NHWC tiles of 16 channels ((rows + 2P) x (cols + 2P)
+// positions, 32 bytes each, 16-byte XOR swizzle so ldmatrix is conflict
+// free) with cp.async, zero-filled outside the grid, double-buffered: step
+// k + 1 lands while step k multiplies, a 1x1 stage taking several chunks a
+// step.  Each chunk's weights come with it, already bf16 in the B-operand
+// layout (lpsr_pack's second buffer), so every chunk is staged once per
+// slab.  The 8 warps split M (m16 tiles interleaved) and keep their
+// float32 accumulators, started from the float32 bias, in registers across
+// all chunks; where a block's rows do not fit one tile or its
+// accumulators, the stage walks row (and column) slabs.  The lff weights
+// (mat(lff) * alpha, up to 16 significant bits) come as an exact bf16 pair
+// hi + lo, two MMAs per step into one accumulator.  The CSAR conv_out's
+// input, the attention products, is written by each block for its own rows
+// into a free buffer first.  The other 12 stages (conv_in, conv_out,
+// final, the 7x7 shallowF1 with 3 input channels, the four depthwise 5x5
+// and the four autoencoder pointwise ones with 12/48 channels and
+// (un)shuffle epilogues) hold ~5 % of the work and keep the scalar float32
+// FMA path (conv_stage, dw5_stage): float32 channel planes in shared
+// memory, 4 positions x G channels a thread.  The float32 instance runs
+// every stage on that scalar path (TF32 would break its 1e-4 bound).
+//
+// What bounds it now.  Two blocks an SM (all 192 blocks of N = 24 resident
+// on 132 SMs) cap a thread at 128 registers, and the shared memory leaves
+// an SM ~28 KB of L1, so a spilled register waits on L2.  The wide stages
+// are held by those spills, by their per-step latency (a 1x1 stage has
+// little arithmetic to hide a step's staging behind) and by the cluster
+// barrier each stage ends with, not by the MMA rate; the kernel's pointers,
+// offset tables and each wide stage's operands are kept in shared memory
+// (KState, MmaStage) and read where needed, which freed registers.  The
+// scalar stages cost about what they did before.
 // The weights come as one packed float32 buffer plus an offset table
-// (lpr_tpu_torch.kernels.lpsr.PACK_KEYS, mirrored by the enum below).
+// (lpr_tpu_torch.kernels.lpsr.PACK_KEYS, mirrored by the enum W_*) and,
+// for the wide stages, a bf16 buffer plus its offset table (MMA_KEYS,
+// enum M_*).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_conv.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -58,10 +94,20 @@ typedef __nv_bfloat16 bf16;
 constexpr int CLUSTER = 8;     // blocks per image
 constexpr int NTHREADS = 256;
 constexpr int PX = 4;          // positions per thread work item
-constexpr int SMEM_FLOATS = 24576;                 // 96 KB: two blocks an SM
+// Shared memory: a convolution stage's region, then the CA reduction and
+// vector (AUX).  A tensor-core stage splits its region into two A tiles
+// (A_ROWS positions of 16 bf16 channels: 6 x 194 at 32x192 with the 3x3
+// halo) and two B tiles (one chunk's weights: 9 taps x 32 outputs x 16
+// channels); the scalar stages use it as float32 planes.  101 KB a block:
+// two blocks an SM.
+constexpr int A_ROWS = 1168;
+constexpr int A_BYTES = A_ROWS * 32;
+constexpr int B_BYTES = 9 * 32 * 32;
+constexpr int CONV_FLOATS = 2 * (A_BYTES + B_BYTES) / 4;
+constexpr int AUX_FLOATS = 2560;
+constexpr int SMEM_FLOATS = CONV_FLOATS + AUX_FLOATS;
 constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
-constexpr int AUX_FLOATS = 2560;                   // CA reduction and vector
-constexpr int CONV_FLOATS = SMEM_FLOATS - AUX_FLOATS;
+static_assert(SMEM_BYTES <= 113 * 1024, "two blocks an SM");
 
 enum WKey {
   W_AE_CONV_IN_W,
@@ -84,25 +130,43 @@ struct Offsets {
   int o[W_COUNT];
 };
 
-// Per-image scratch layout, in elements of T (each buffer NHWC, 8-aligned).
+// The wide stages' bf16 weights (lpr_tpu_torch.kernels.lpsr.MMA_KEYS).
+enum MKey {
+  M_SF2,
+  M_RDB0,                                  // l0 .. l3, lff
+  M_RDB1 = M_RDB0 + 5,
+  M_CSAR = M_RDB1 + 5,                     // in0 in1 sa1 sa2 out
+  M_GFF0 = M_CSAR + 5, M_GFF1,
+  M_COUNT
+};
+static_assert(M_COUNT == 18, "MMA_KEYS has 18 entries");
+
+struct MOffsets {
+  int o[M_COUNT];
+};
+
+// Per-image scratch buffers, each NHWC: ci, tmp (every depthwise output),
+// u1 (P/4 x 48), u2 (P/16 x 48), s1 (P/4 x 12), a, xb (3), sfe1, cat
+// (96), feats (128), t32, xin, sa1 (64), sa.
+enum Buf {
+  B_CI, B_TMP, B_U1, B_U2, B_S1, B_A, B_XB, B_SFE1, B_CAT, B_FEATS, B_T32,
+  B_XIN, B_SA1, B_SA, NBUF
+};
+
+// Offsets of the buffers in elements of T (8-aligned), and the total.
 struct Layout {
-  long long ci, tmp, u1, u2, s1, a, xb, sfe1, cat, feats, t32, xin, sa1, sa,
-      total;
+  long long off[NBUF], total;
 };
 
 __host__ __device__ inline Layout layout(int H, int W) {
   const long long P = (long long)H * W;
+  // channels per full-resolution position
+  const int chans[NBUF] = {12, 12, 12, 3, 3, 12, 3, 32, 96, 128, 32, 32, 64,
+                           32};
   Layout L;
   long long o = 0;
-  long long* fields[] = {&L.ci, &L.tmp, &L.u1, &L.u2, &L.s1, &L.a, &L.xb,
-                         &L.sfe1, &L.cat, &L.feats, &L.t32, &L.xin, &L.sa1,
-                         &L.sa};
-  // ci, tmp (every depthwise output), u1 (P/4 x 48), u2 (P/16 x 48),
-  // s1 (P/4 x 12), a, xb (3), sfe1, cat (96), feats (128), t32, xin, sa1
-  // (64), sa — in channels per full-resolution position.
-  const int chans[] = {12, 12, 12, 3, 3, 12, 3, 32, 96, 128, 32, 32, 64, 32};
-  for (int i = 0; i < 14; ++i) {
-    *fields[i] = o;
+  for (int i = 0; i < NBUF; ++i) {
+    L.off[i] = o;
     o += (P * chans[i] + 7) & ~7LL;
   }
   L.total = o;
@@ -195,24 +259,16 @@ __device__ __forceinline__ void own_rows(int hr, int rank, int& r0,
 }
 
 // Where a convolution stage reads input channel c at (y, x) of its grid:
-// LD_PLAIN — channel coff + c of an NHWC buffer with cs channels per
-// position; LD_CSAR — CSAR conv_out's input [x_in * T(x_in * ca),
-// x_in * sa] built from x_in (buf, 32 channels), sa (32) and ca (32 floats
-// in shared memory).
-enum LoadMode { LD_PLAIN, LD_CSAR };
-
+// channel coff + c of an NHWC buffer with cs channels per position.
 template <class T>
 struct Src {
-  int mode;
   const T* buf;
   int cs, coff;
-  const T* sa;
-  const float* ca;
 };
 
 template <class T>
 __host__ __device__ Src<T> plain_src(const T* buf, int cs, int coff) {
-  return Src<T>{LD_PLAIN, buf, cs, coff, nullptr, nullptr};
+  return Src<T>{buf, cs, coff};
 }
 
 // What a stage does with output channel co's float32 sum v (bias included)
@@ -253,33 +309,14 @@ __host__ __device__ Dst<T> dst(int mode, T* buf, int cs, int coff) {
 template <class T>
 __device__ __forceinline__ float load_src(const Src<T>& s, int wr, int y,
                                           int x, int c) {
-  const size_t pos = (size_t)y * wr + x;
-  if (s.mode == LD_PLAIN) return ldf(s.buf + pos * s.cs + s.coff + c);
-  const float xi = ldf(s.buf + pos * 32 + (c & 31));
-  if (c < 32) return rnd<T>(xi * rnd<T>(xi * s.ca[c]));
-  return rnd<T>(xi * ldf(s.sa + pos * 32 + c - 32));
+  return ldf(s.buf + ((size_t)y * wr + x) * s.cs + s.coff + c);
 }
 
 // VEC<T> consecutive input channels c .. c+VEC-1 (c a multiple of VEC).
 template <class T>
 __device__ __forceinline__ void load_src_vec(const Src<T>& s, int wr, int y,
                                              int x, int c, float* v) {
-  const size_t pos = (size_t)y * wr + x;
-  if (s.mode == LD_PLAIN) {
-    ldvec(s.buf + pos * s.cs + s.coff + c, v);
-    return;
-  }
-  constexpr int N = VEC<T>;
-  float xi[N];
-  ldvec(s.buf + pos * 32 + (c & 31), xi);
-  if (c < 32) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = rnd<T>(xi[k] * rnd<T>(xi[k] * s.ca[c + k]));
-  } else {
-    ldvec(s.sa + pos * 32 + c - 32, v);
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = rnd<T>(xi[k] * v[k]);
-  }
+  ldvec(s.buf + ((size_t)y * wr + x) * s.cs + s.coff + c, v);
 }
 
 template <class T>
@@ -340,8 +377,8 @@ __device__ __noinline__ void conv_stage(float* sm, int rank, int hr, int wr,
   const int tr = nrows + 2 * P, tc = wr + 2 * P, plane = tr * tc;
   constexpr int NV = VEC<T>;
   // 16-byte loads where every chunk is whole vectors of aligned channels
-  const bool vec = cin % NV == 0 &&
-                   (src.mode == LD_CSAR || (src.cs % NV == 0 && src.coff % NV == 0));
+  const bool vec =
+      cin % NV == 0 && src.cs % NV == 0 && src.coff % NV == 0;
   int ck = min(cin, CONV_FLOATS / plane);
   if (vec) ck = ck / NV * NV;
   const bool single = ck >= cin;
@@ -501,6 +538,256 @@ __device__ __noinline__ void conv_stage(float* sm, int rank, int hr, int wr,
   }
 }
 
+// A wide stage's operands (their channel offsets applied) and slab
+// geometry, kept in shared memory by conv_mma and read (volatile) where it
+// stages a step or stores a slab, so that they hold no registers across
+// its inner loop: spilled registers miss the L1 that the shared memory
+// leaves and wait on L2.
+struct MmaStage {
+  const bf16* in;
+  const bf16* wm;
+  const float* bias;
+  bf16* out;
+  const bf16* res;
+  bf16* out2;
+  int in_cs, out_cs, res_cs, out2_cs;      // channels a position
+  int hr, wr, r0, r1, rs, cs, ncx, nchunk, nsub, nps, nstep, sub;
+};
+
+// Step k of a wide stage: slab origin (y0, x0), its rows x cols, and its
+// chunks [c0, c0 + nc).
+struct MmaStep {
+  int y0, x0, rows, cols, c0, nc;
+};
+
+__device__ __forceinline__ MmaStep mma_step(const volatile MmaStage& d,
+                                            int k) {
+  const int nps = d.nps, ncx = d.ncx, rs = d.rs, cs = d.cs;
+  const int s = k / nps, sy = s / ncx, sx = s - sy * ncx;
+  MmaStep t;
+  t.c0 = (k - s * nps) * d.nsub;
+  t.nc = min(d.nsub, d.nchunk - t.c0);
+  t.y0 = d.r0 + sy * rs;
+  t.x0 = sx * cs;
+  t.rows = min(rs, d.r1 - t.y0);
+  t.cols = min(cs, d.wr - t.x0);
+  return t;
+}
+
+// One KxK / stride-1 / 'same' convolution over the block's own rows of an
+// (hr, wr) grid on the tensor cores (bf16 only): cin -> NT*8 channels, cin
+// a multiple of 16, input channels [coff, coff + cin) of `src` (cs % 8 ==
+// 0, coff % 16 == 0), output through `dst` with epilogue MODE (EP_STORE,
+// EP_RELU, EP_RESID or EP_SIGMOID, rounded as store_dst rounds).  `wm`
+// holds the stage's weights as bf16 B tiles, chunk-major: for each
+// 16-channel chunk, PARTS x K*K taps x NT*8 output rows of 32 bytes,
+// swizzled as mma_conv.cuh says (PARTS == 2: an exact pair hi, lo, both
+// multiplied into one accumulator).  `st` is the block's MmaStage.
+//
+// The block's rows are cut into slabs of whole rows (and, for a very wide
+// grid, columns) whose halo'd tile fits A_ROWS and whose positions fit the
+// warps' accumulators (8 warps x MT m16 tiles, interleaved).  A step
+// stages NSUB consecutive chunks of one slab (as many as the A and B tiles
+// hold: several for a 1x1 stage, one for a 3x3) into one of two buffers
+// with cp.async, while the step before multiplies; the slab's last step
+// ends with the epilogue.
+template <int K, int NT, int PARTS, int MODE>
+__device__ __forceinline__ void conv_mma(float* smf, MmaStage* st, int rank,
+                                         int hr, int wr, int cin,
+                                         const bf16* __restrict__ wm,
+                                         const float* __restrict__ bias,
+                                         const Src<bf16>& src,
+                                         const Dst<bf16>& dst) {
+  using namespace mma_conv;
+  constexpr int P = K / 2, TAPS = K * K, COUT = NT * 8;
+  // m16 tiles per warp under the 128-register cap of two blocks an SM:
+  // 6 for 16 output channels (one slab of 768 positions at 32x192), 2 for
+  // 32 or 64 (the measured best of 12 / NT, 8 / NT and these).
+  constexpr int MT = NT == 2 ? 6 : 2;
+  constexpr int MAXPOS = (NTHREADS / 32) * MT * 16;
+  constexpr int BCHUNK = PARTS * TAPS * COUT * 32;     // bytes per chunk
+  static_assert(NT % 2 == 0 && MT >= 1, "two n8 tiles per ldmatrix");
+  static_assert(BCHUNK <= B_BYTES, "a chunk's weights fit a B tile");
+  int r0, r1;
+  own_rows(hr, rank, r0, r1);
+  const int nrows = r1 - r0;
+  if (nrows <= 0) return;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    // Slabs: ncx column pieces of cs columns, nry row pieces of rs rows;
+    // nsub chunks a step, in sub-tiles of the largest slab's tile.
+    const int cs_max = min(MAXPOS, A_ROWS / (1 + 2 * P) - 2 * P);
+    const int ncx = (wr + cs_max - 1) / cs_max;
+    const int cs = (wr + ncx - 1) / ncx;
+    int rs = min(nrows, min(MAXPOS / cs, A_ROWS / (cs + 2 * P) - 2 * P));
+    const int nry = (nrows + rs - 1) / rs;
+    rs = (nrows + nry - 1) / nry;
+    const int nchunk = cin / 16;
+    const int sub = ((rs + 2 * P) * (cs + 2 * P) * 32 + 127) & ~127;
+    const int nsub = min(nchunk, min(A_BYTES / sub, B_BYTES / BCHUNK));
+    const int nps = (nchunk + nsub - 1) / nsub;
+    *st = MmaStage{src.buf + src.coff, wm, bias, dst.buf + dst.coff,
+                   dst.res + dst.res_coff, dst.buf2, src.cs, dst.cs,
+                   dst.res_cs, dst.cs2, hr, wr, r0, r1, rs, cs, ncx,
+                   nchunk, nsub, nps, nry * ncx * nps, sub};
+  }
+  __syncthreads();
+  const volatile MmaStage& d = *st;
+  char* const sm = reinterpret_cast<char*>(smf);
+  const uint32_t a_sm = smem_u32(sm), b_sm = smem_u32(sm + 2 * A_BYTES);
+
+  // Stage step k's chunks and their weights into buffer k & 1.
+  auto fetch = [&](int k) {
+    const MmaStep t = mma_step(d, k);
+    const int tc = t.cols + 2 * P, n = (t.rows + 2 * P) * tc * 2;
+    const int h_r = d.hr, w_r = d.wr, in_cs = d.in_cs, sub = d.sub;
+    const uint32_t a = a_sm + (k & 1) * A_BYTES;
+    for (int j = 0; j < t.nc; ++j) {
+      const bf16* g0 = d.in + (t.c0 + j) * 16;
+      for (int e = tid; e < n; e += NTHREADS) {
+        const int q = e >> 1, h = e & 1;
+        const int ty = q / tc, tx = q - ty * tc;
+        const int gy = t.y0 - P + ty, gx = t.x0 - P + tx;
+        const bool in = gy >= 0 && gy < h_r && gx >= 0 && gx < w_r;
+        cp_async16(a + j * sub + swz(q, h),
+                   in ? g0 + ((size_t)gy * w_r + gx) * in_cs + h * 8 : g0,
+                   in);
+      }
+    }
+    const char* w =
+        reinterpret_cast<const char*>(d.wm) + (size_t)t.c0 * BCHUNK;
+    const uint32_t b = b_sm + (k & 1) * B_BYTES;
+    for (int e = tid; e < t.nc * BCHUNK / 16; e += NTHREADS)
+      cp_async16(b + e * 16, w + e * 16, true);
+    cp_async_commit();
+  };
+
+  const int warp = tid >> 5, lane = tid & 31;
+  float acc[MT][NT][4];
+  int qa[MT];            // this lane's A row in the tile, at tap (0, 0)
+  fetch(0);
+  for (int k = 0; k < d.nstep; ++k) {
+    if (k + 1 < d.nstep) {
+      fetch(k + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int nc, tc;
+    {
+      const MmaStep t = mma_step(d, k);
+      nc = t.nc;
+      tc = t.cols + 2 * P;
+      if (t.c0 == 0) {
+        const int np = t.rows * t.cols;
+        const float* b = d.bias;
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int p = min((warp + 8 * i) * 16 + (lane & 15), np - 1);
+          const int oy = p / t.cols;
+          qa[i] = oy * tc + p - oy * t.cols;
+#pragma unroll
+          for (int jn = 0; jn < NT; ++jn) {
+            const float2 b2 = __ldg(reinterpret_cast<const float2*>(
+                b + jn * 8 + 2 * (lane & 3)));
+            acc[i][jn][0] = b2.x;
+            acc[i][jn][1] = b2.y;
+            acc[i][jn][2] = b2.x;
+            acc[i][jn][3] = b2.y;
+          }
+        }
+      }
+    }
+    const uint32_t a_buf = a_sm + (k & 1) * A_BYTES;
+    const uint32_t b_buf = b_sm + (k & 1) * B_BYTES;
+    const int sub = d.sub;
+#pragma unroll 1
+    for (int j = 0; j < nc; ++j) {
+#pragma unroll 1
+      for (int t = 0; t < TAPS; ++t) {
+        const int dq = (t / K) * tc + t % K;
+        uint32_t bf[PARTS][NT][2];
+#pragma unroll
+        for (int part = 0; part < PARTS; ++part) {
+#pragma unroll
+          for (int jn = 0; jn < NT; jn += 2) {
+            const int row = (part * TAPS + t) * COUT + jn * 8 +
+                            8 * (lane >> 4) + (lane & 7);
+            uint32_t r[4];
+            ldmatrix_x4(r, b_buf + j * BCHUNK + swz(row, (lane >> 3) & 1));
+            bf[part][jn][0] = r[0];
+            bf[part][jn][1] = r[1];
+            bf[part][jn + 1][0] = r[2];
+            bf[part][jn + 1][1] = r[3];
+          }
+        }
+        // Every warp multiplies all MT tiles: a tile past the slab's end
+        // repeats its last position and is not stored (branching around
+        // it here sends the accumulators to local memory).
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          uint32_t a[4];
+          ldmatrix_x4(a, a_buf + j * sub + swz(qa[i] + dq, lane >> 4));
+#pragma unroll
+          for (int part = 0; part < PARTS; ++part)
+#pragma unroll
+            for (int jn = 0; jn < NT; ++jn)
+              mma_bf16(acc[i][jn], a, bf[part][jn][0], bf[part][jn][1]);
+        }
+      }
+    }
+    const MmaStep t = mma_step(d, k);
+    if (t.c0 + t.nc == d.nchunk) {
+      // Epilogue: lane holds rows lane/4 and lane/4 + 8 of each m16 tile,
+      // channels jn*8 + 2*(lane%4) and + 1 of each n8 tile.
+      const int np = t.rows * t.cols, wr_ = d.wr;
+      bf16* const out = d.out;
+      const bf16* const res = d.res;
+      bf16* const out2 = d.out2;
+      const int out_cs = d.out_cs, res_cs = d.res_cs, out2_cs = d.out2_cs;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int hrow = 0; hrow < 2; ++hrow) {
+          const int p = (warp + 8 * i) * 16 + (lane >> 2) + 8 * hrow;
+          if (p >= np) continue;
+          const int oy = p / t.cols;
+          const size_t pos =
+              (size_t)(t.y0 + oy) * wr_ + t.x0 + p - oy * t.cols;
+          const int c = 2 * (lane & 3);
+#pragma unroll
+          for (int jn = 0; jn < NT; ++jn) {
+            float v0 = acc[i][jn][2 * hrow], v1 = acc[i][jn][2 * hrow + 1];
+            if constexpr (MODE == EP_RELU) {
+              v0 = fmaxf(v0, 0.0f);
+              v1 = fmaxf(v1, 0.0f);
+            } else if constexpr (MODE == EP_RESID) {
+              // two bf16 residuals: the lower channel in the low half
+              const unsigned r = __ldcg(reinterpret_cast<const unsigned*>(
+                  res + pos * res_cs + jn * 8 + c));
+              v0 = __uint_as_float(r << 16) + rnd<bf16>(v0);
+              v1 = __uint_as_float(r & 0xffff0000u) + rnd<bf16>(v1);
+            } else if constexpr (MODE == EP_SIGMOID) {
+              v0 = sigmoidf(rnd<bf16>(v0));
+              v1 = sigmoidf(rnd<bf16>(v1));
+            } else {
+              static_assert(MODE == EP_STORE, "a plain NHWC epilogue");
+            }
+            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<__nv_bfloat162*>(out + pos * out_cs + jn * 8 +
+                                               c) = v;
+            if (MODE == EP_RESID && out2 != nullptr)
+              *reinterpret_cast<__nv_bfloat162*>(out2 + pos * out2_cs +
+                                                 jn * 8 + c) = v;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // Depthwise 5x5 / 'same' over the block's own rows of an (hr, wr, c) NHWC
 // buffer: out = T(sum + bias).
 template <class T>
@@ -533,82 +820,124 @@ __device__ __noinline__ void dw5_stage(int rank, int hr, int wr, int c,
   }
 }
 
+// What every stage of one image reads, in shared memory: the weight
+// buffers and their offset tables, and the image's scratch buffers.
+// Read (volatile) where a stage needs them: pointers derived once and held
+// in registers across the kernel crowd out the tensor-core stages'
+// accumulators (two blocks an SM leave 128 registers a thread).
 template <class T>
-struct Img {
+struct KState {
   const float* wb;
-  Offsets off;
-  float* sm;
-  int rank, H, W;
-  __device__ const float* wt(int k) const { return wb + off.o[k]; }
+  const bf16* wm;
+  T* bufs[NBUF];
+  int off[W_COUNT];
+  int moff[M_COUNT];
 };
 
-// RDB: four dense 3x3 convs (32, 48, 64, 80 -> 16, ReLU) appended to the
-// concat buffer `cat` (96 channels; its channels 0-31 hold the input z),
-// then lff 1x1 96 -> 32 (alpha folded) and the residual z -> out.
 template <class T>
-__device__ void rdb(const Img<T>& im, int wbase, T* cat, T* out, int out_cs,
-                    int out_coff) {
-  const int H = im.H, W = im.W;
+struct Img {
+  const KState<T>* ks;
+  MmaStage* stage;               // the wide stages' MmaStage
+  float* sm;
+  int rank, H, W;
+  __device__ const volatile KState<T>& s() const {
+    return *const_cast<const volatile KState<T>*>(ks);
+  }
+  __device__ const float* wt(int k) const { return s().wb + s().off[k]; }
+  __device__ const bf16* mw(int k) const { return s().wm + s().moff[k]; }
+  __device__ T* buf(int b) const { return s().bufs[b]; }
+};
+
+// One of the 23 wide convolution stages at full resolution, cin -> NT*8
+// channels with float32 weights at W key `wkey` (its bias at wkey + 1)
+// and bf16 B tiles at M key `mkey`, epilogue MODE (== dst.mode): on the
+// tensor cores in the bf16 instance, the scalar path in the float32 one.
+template <int K, int NT, int PARTS, int MODE, class T>
+__device__ __forceinline__ void wide_conv(const Img<T>& im, int cin, int wkey,
+                                          int mkey, Src<T> src, Dst<T> dst) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    conv_mma<K, NT, PARTS, MODE>(im.sm, im.stage, im.rank, im.H, im.W, cin,
+                                 im.mw(mkey), im.wt(wkey + 1), src, dst);
+  } else {
+    conv_stage<K, 8, T>(im.sm, im.rank, im.H, im.W, cin, NT * 8, im.wt(wkey),
+                        im.wt(wkey + 1), src, dst);
+  }
+}
+
+// RDB: four dense 3x3 convs (32, 48, 64, 80 -> 16, ReLU) appended to the
+// concat buffer cat (96 channels; its channels 0-31 hold the input z),
+// then lff 1x1 96 -> 32 (alpha folded) and the residual z -> channels
+// [out_coff, +32) of feats.
+template <class T>
+__device__ void rdb(const Img<T>& im, int wbase, int mbase, int out_coff) {
   for (int i = 0; i < 4; ++i) {
     const int cin = 32 + 16 * i;
-    conv_stage<3, 8, T>(im.sm, im.rank, H, W, cin, 16, im.wt(wbase + 2 * i),
-                        im.wt(wbase + 2 * i + 1), plain_src<T>(cat, 96, 0),
-                        dst<T>(EP_RELU, cat, 96, cin));
+    wide_conv<3, 2, 1, EP_RELU>(im, cin, wbase + 2 * i, mbase + i,
+                                plain_src<T>(im.buf(B_CAT), 96, 0),
+                                dst<T>(EP_RELU, im.buf(B_CAT), 96, cin));
     stage_barrier();
   }
-  Dst<T> d = dst<T>(EP_RESID, out, out_cs, out_coff);
-  d.res = cat;
+  Dst<T> d = dst<T>(EP_RESID, im.buf(B_FEATS), 128, out_coff);
+  d.res = im.buf(B_CAT);
   d.res_cs = 96;
-  conv_stage<1, 8, T>(im.sm, im.rank, H, W, 96, 32, im.wt(wbase + 8),
-                      im.wt(wbase + 9), plain_src<T>(cat, 96, 0), d);
+  wide_conv<1, 4, 2, EP_RESID>(im, 96, wbase + 8, mbase + 4,
+                               plain_src<T>(im.buf(B_CAT), 96, 0), d);
   stage_barrier();
 }
 
-// CSAR on z (channels [z_coff, +32) of a z_cs-channel buffer) -> out (and
-// out2 when given), with scratch t32, xin, sa1, sa (32, 32, 64, 32 ch).
+// CSAR on z (channels [z_coff, +32) of feats) -> channels [out_coff, +32)
+// of feats (and channels 0-31 of cat when to_cat), with scratch t32, xin,
+// sa1, sa (32, 32, 64, 32 channels).
 template <class T>
-__device__ void csar(const Img<T>& im, const T* z, int z_cs, int z_coff,
-                     T* out, int out_cs, int out_coff, T* out2, int out2_cs,
-                     T* t32, T* xin, T* sa1, T* sa) {
+__device__ void csar(const Img<T>& im, int z_coff, int out_coff,
+                     bool to_cat) {
   const int H = im.H, W = im.W;
-  const int wb = W_CSAR;
-  conv_stage<3, 8, T>(im.sm, im.rank, H, W, 32, 32, im.wt(wb), im.wt(wb + 1),
-                      plain_src<T>(z, z_cs, z_coff),
-                      dst<T>(EP_RELU, t32, 32, 0));
+  const int wb = W_CSAR, mb = M_CSAR;
+  wide_conv<3, 4, 1, EP_RELU>(im, 32, wb, mb,
+                              plain_src<T>(im.buf(B_FEATS), 128, z_coff),
+                              dst<T>(EP_RELU, im.buf(B_T32), 32, 0));
   stage_barrier();
-  conv_stage<3, 8, T>(im.sm, im.rank, H, W, 32, 32, im.wt(wb + 2),
-                      im.wt(wb + 3), plain_src<T>(t32, 32, 0),
-                      dst<T>(EP_STORE, xin, 32, 0));
+  wide_conv<3, 4, 1, EP_STORE>(im, 32, wb + 2, mb + 1,
+                               plain_src<T>(im.buf(B_T32), 32, 0),
+                               dst<T>(EP_STORE, im.buf(B_XIN), 32, 0));
   stage_barrier();
-  conv_stage<1, 8, T>(im.sm, im.rank, H, W, 32, 64, im.wt(wb + 8),
-                      im.wt(wb + 9), plain_src<T>(xin, 32, 0),
-                      dst<T>(EP_RELU, sa1, 64, 0));
+  wide_conv<1, 8, 1, EP_RELU>(im, 32, wb + 8, mb + 2,
+                              plain_src<T>(im.buf(B_XIN), 32, 0),
+                              dst<T>(EP_RELU, im.buf(B_SA1), 64, 0));
   stage_barrier();
-  conv_stage<1, 8, T>(im.sm, im.rank, H, W, 64, 32, im.wt(wb + 10),
-                      im.wt(wb + 11), plain_src<T>(sa1, 64, 0),
-                      dst<T>(EP_SIGMOID, sa, 32, 0));
+  wide_conv<1, 4, 1, EP_SIGMOID>(im, 64, wb + 10, mb + 3,
+                                 plain_src<T>(im.buf(B_SA1), 64, 0),
+                                 dst<T>(EP_SIGMOID, im.buf(B_SA), 32, 0));
   stage_barrier();
 
-  // Channel attention: the float32 mean of xin over the whole image, by
-  // every block in the same order; fc1 32 -> 8, ReLU, fc2 8 -> 32, sigmoid.
+  // Channel attention: the float32 mean of xin over the whole image; fc1
+  // 32 -> 8, ReLU, fc2 8 -> 32, sigmoid.  Each block sums its own rows
+  // (part), the cluster syncs, and every block adds the 8 blocks' sums in
+  // rank order from their shared memory, so all use the same value and a
+  // run is deterministic.
   float* red = im.sm + CONV_FLOATS;        // 256 x VEC partial sums
-  float* vec = red + 2048;                 // mean (32), hidden (8)
+  float* part = red + 2048;                // this block's sums (32)
+  float* vec = part + 32;                  // mean (32), hidden (8)
   float* ca = vec + 64;                    // 32
   {
-    // Thread t sums VEC channels (group t % NG) over positions t / NG,
-    // t / NG + NL, ...; then each channel adds its NL partial sums in order.
+    // Thread t sums VEC channels (group t % NG) over own positions
+    // t / NG, t / NG + NL, ...; then each channel adds its NL partial sums
+    // in order.
     constexpr int NV = VEC<T>, NG = 32 / NV, NL = NTHREADS / NG;
+    const T* xin = im.buf(B_XIN);
     const int t = threadIdx.x, grp = t % NG, lane = t / NG;
-    const int P = H * W;
+    int r0, r1;
+    own_rows(H, im.rank, r0, r1);
+    const int p_end = r1 * W;
     float acc[NV];
 #pragma unroll
     for (int k = 0; k < NV; ++k) acc[k] = 0.0f;
-    for (int p0 = lane; p0 < P; p0 += 4 * NL) {
+    for (int p0 = r0 * W + lane; p0 < p_end; p0 += 4 * NL) {
       float v[4][NV];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int pos = p0 + u * NL;
-        if (pos < P) {
+        if (pos < p_end) {
           ldvec(xin + (size_t)pos * 32 + grp * NV, v[u]);
         } else {
 #pragma unroll
@@ -626,7 +955,15 @@ __device__ void csar(const Img<T>& im, const T* z, int z_cs, int z_coff,
     if (t < 32) {
       float m = 0.0f;
       for (int l = 0; l < NL; ++l) m += red[(l * NG + t / NV) * NV + t % NV];
-      vec[t] = m / (float)P;
+      part[t] = m;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (t < 32) {
+      float m = 0.0f;
+      for (int r = 0; r < CLUSTER; ++r)
+        m += cluster.map_shared_rank(part, r)[t];
+      vec[t] = m / (float)(H * W);
     }
     __syncthreads();
     if (t < 8) {
@@ -645,16 +982,58 @@ __device__ void csar(const Img<T>& im, const T* z, int z_cs, int z_coff,
     }
     __syncthreads();
   }
-  // conv_out 1x1 64 -> 32 over [x_in * T(x_in * ca), x_in * sa], + z.
-  Src<T> s{LD_CSAR, xin, 32, 0, sa, ca};
-  Dst<T> d = dst<T>(EP_RESID, out, out_cs, out_coff);
-  d.res = z;
-  d.res_cs = z_cs;
+  // conv_out's input [x_in * T(x_in * ca), x_in * sa], rounded to T, for
+  // the block's own rows into sa1 (64 channels, free since sa2): conv_out
+  // is 1x1, so the block reads only what it wrote.
+  {
+    constexpr int NV = VEC<T>, NG = 64 / NV;
+    const T *xin = im.buf(B_XIN), *sa = im.buf(B_SA);
+    T* sa1 = im.buf(B_SA1);
+    int r0, r1;
+    own_rows(H, im.rank, r0, r1);
+    const int n = (r1 - r0) * W * NG;
+    // U items a thread in flight: their loads before any store.
+    constexpr int U = 4;
+    for (int e0 = threadIdx.x; e0 < n; e0 += U * NTHREADS) {
+      float xi[U][NV], v[U][NV];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = min(e0 + u * NTHREADS, n - 1);
+        const size_t pos = (size_t)r0 * W + e / NG;
+        const int c = (e % NG) * NV;
+        ldvec(xin + pos * 32 + (c & 31), xi[u]);
+        if (c >= 32) ldvec(sa + pos * 32 + c - 32, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * NTHREADS;
+        if (e >= n) break;
+        const size_t pos = (size_t)r0 * W + e / NG;
+        const int c = (e % NG) * NV;
+        if (c < 32) {
+#pragma unroll
+          for (int k = 0; k < NV; ++k)
+            v[u][k] = rnd<T>(xi[u][k] * rnd<T>(xi[u][k] * ca[c + k]));
+        } else {
+#pragma unroll
+          for (int k = 0; k < NV; ++k) v[u][k] = rnd<T>(xi[u][k] * v[u][k]);
+        }
+        *reinterpret_cast<uint4*>(sa1 + pos * 64 + c) = pack(v[u], sa1);
+      }
+    }
+    __syncthreads();
+  }
+  // conv_out 1x1 64 -> 32, + z.
+  Dst<T> d = dst<T>(EP_RESID, im.buf(B_FEATS), 128, out_coff);
+  d.res = im.buf(B_FEATS);
+  d.res_cs = 128;
   d.res_coff = z_coff;
-  d.buf2 = out2;
-  d.cs2 = out2_cs;
-  conv_stage<1, 8, T>(im.sm, im.rank, H, W, 64, 32, im.wt(wb + 12),
-                      im.wt(wb + 13), s, d);
+  if (to_cat) {
+    d.buf2 = im.buf(B_CAT);
+    d.cs2 = 96;
+  }
+  wide_conv<1, 4, 1, EP_RESID>(im, 64, wb + 12, mb + 4,
+                               plain_src<T>(im.buf(B_SA1), 64, 0), d);
   stage_barrier();
 }
 
@@ -662,90 +1041,108 @@ template <class T>
 __global__ void __cluster_dims__(CLUSTER, 1, 1)
     __launch_bounds__(NTHREADS, 2)
     lpsr_kernel(const T* __restrict__ x, const float* __restrict__ wb,
-                Offsets off, T* __restrict__ scratch, float* __restrict__ out,
-                int H, int W) {
-  extern __shared__ __align__(16) float sm[];
+                const __grid_constant__ Offsets off,
+                const bf16* __restrict__ wm,
+                const __grid_constant__ MOffsets moff,
+                T* __restrict__ scratch, float* __restrict__ out, int H,
+                int W) {
+  extern __shared__ __align__(128) float sm[];
+  __shared__ KState<T> ks;
+  __shared__ MmaStage stage;
   const int rank = (int)cg::this_cluster().block_rank();
   const int img = blockIdx.x / CLUSTER;
-  const Layout L = layout(H, W);
-  T* s = scratch + (size_t)img * L.total;
-  T *ci = s + L.ci, *tmp = s + L.tmp, *u1 = s + L.u1, *u2 = s + L.u2,
-    *s1 = s + L.s1, *a = s + L.a, *xb = s + L.xb, *sfe1 = s + L.sfe1,
-    *cat = s + L.cat, *feats = s + L.feats, *t32 = s + L.t32,
-    *xin = s + L.xin, *sa1 = s + L.sa1, *sa = s + L.sa;
-  const T* xi = x + (size_t)img * H * W * 3;
-  const Img<T> im{wb, off, sm, rank, H, W};
+  {
+    const int t = threadIdx.x;
+    if (t < NBUF) {
+      const Layout L = layout(H, W);
+      ks.bufs[t] = scratch + (size_t)img * L.total + L.off[t];
+    }
+    if (t < W_COUNT) ks.off[t] = off.o[t];
+    if (t < M_COUNT) ks.moff[t] = moff.o[t];
+    if (t == 0) {
+      ks.wb = wb;
+      ks.wm = wm;
+    }
+  }
+  __syncthreads();
+  const Img<T> im{&ks, &stage, sm, rank, H, W};
   const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
 
   // ---- AutoEncoder ----------------------------------------------------
   conv_stage<3, 4, T>(sm, rank, H, W, 3, 12, im.wt(W_AE_CONV_IN_W), nullptr,
-                      plain_src<T>(xi, 3, 0), dst<T>(EP_STORE, ci, 12, 0));
+                      plain_src<T>(x + (size_t)img * H * W * 3, 3, 0),
+                      dst<T>(EP_STORE, im.buf(B_CI), 12, 0));
   stage_barrier();
-  dw5_stage<T>(rank, H, W, 12, ci, im.wt(W_ENC0_DW_W), im.wt(W_ENC0_DW_B),
-               tmp);
+  dw5_stage<T>(rank, H, W, 12, im.buf(B_CI), im.wt(W_ENC0_DW_W),
+               im.wt(W_ENC0_DW_B), im.buf(B_TMP));
   stage_barrier();
   // enc0 pw 12 -> 12, unshuffle to (H/2, W/2, 48), ReLU.
   conv_stage<1, 4, T>(sm, rank, H, W, 12, 12, im.wt(W_ENC0_PW_W),
-                      im.wt(W_ENC0_PW_B), plain_src<T>(tmp, 12, 0),
-                      dst<T>(EP_UNSHUFFLE_RELU, u1, 48, 0));
+                      im.wt(W_ENC0_PW_B), plain_src<T>(im.buf(B_TMP), 12, 0),
+                      dst<T>(EP_UNSHUFFLE_RELU, im.buf(B_U1), 48, 0));
   stage_barrier();
-  dw5_stage<T>(rank, H2, W2, 48, u1, im.wt(W_ENC1_DW_W), im.wt(W_ENC1_DW_B),
-               tmp);
+  dw5_stage<T>(rank, H2, W2, 48, im.buf(B_U1), im.wt(W_ENC1_DW_W),
+               im.wt(W_ENC1_DW_B), im.buf(B_TMP));
   stage_barrier();
   // enc1 pw 48 -> 12, unshuffle to (H/4, W/4, 48), ReLU.
   conv_stage<1, 4, T>(sm, rank, H2, W2, 48, 12, im.wt(W_ENC1_PW_W),
-                      im.wt(W_ENC1_PW_B), plain_src<T>(tmp, 48, 0),
-                      dst<T>(EP_UNSHUFFLE_RELU, u2, 48, 0));
+                      im.wt(W_ENC1_PW_B), plain_src<T>(im.buf(B_TMP), 48, 0),
+                      dst<T>(EP_UNSHUFFLE_RELU, im.buf(B_U2), 48, 0));
   stage_barrier();
-  dw5_stage<T>(rank, H4, W4, 48, u2, im.wt(W_DEC0_DW_W), im.wt(W_DEC0_DW_B),
-               tmp);
+  dw5_stage<T>(rank, H4, W4, 48, im.buf(B_U2), im.wt(W_DEC0_DW_W),
+               im.wt(W_DEC0_DW_B), im.buf(B_TMP));
   stage_barrier();
   // dec0 pw 48 -> 48, shuffle to (H/2, W/2, 12), ReLU.
   conv_stage<1, 8, T>(sm, rank, H4, W4, 48, 48, im.wt(W_DEC0_PW_W),
-                      im.wt(W_DEC0_PW_B), plain_src<T>(tmp, 48, 0),
-                      dst<T>(EP_SHUFFLE_RELU, s1, 12, 0));
+                      im.wt(W_DEC0_PW_B), plain_src<T>(im.buf(B_TMP), 48, 0),
+                      dst<T>(EP_SHUFFLE_RELU, im.buf(B_S1), 12, 0));
   stage_barrier();
-  dw5_stage<T>(rank, H2, W2, 12, s1, im.wt(W_DEC1_DW_W), im.wt(W_DEC1_DW_B),
-               tmp);
+  dw5_stage<T>(rank, H2, W2, 12, im.buf(B_S1), im.wt(W_DEC1_DW_W),
+               im.wt(W_DEC1_DW_B), im.buf(B_TMP));
   stage_barrier();
   // dec1 pw 12 -> 48, shuffle to (H, W, 12), ReLU, + conv_in.
   {
-    Dst<T> d = dst<T>(EP_SHUFFLE_RELU_ADD, a, 12, 0);
-    d.res = ci;
+    Dst<T> d = dst<T>(EP_SHUFFLE_RELU_ADD, im.buf(B_A), 12, 0);
+    d.res = im.buf(B_CI);
     conv_stage<1, 8, T>(sm, rank, H2, W2, 12, 48, im.wt(W_DEC1_PW_W),
-                        im.wt(W_DEC1_PW_B), plain_src<T>(tmp, 12, 0), d);
+                        im.wt(W_DEC1_PW_B),
+                        plain_src<T>(im.buf(B_TMP), 12, 0), d);
   }
   stage_barrier();
   conv_stage<3, 3, T>(sm, rank, H, W, 12, 3, im.wt(W_AE_CONV_OUT_W), nullptr,
-                      plain_src<T>(a, 12, 0), dst<T>(EP_STORE, xb, 3, 0));
+                      plain_src<T>(im.buf(B_A), 12, 0),
+                      dst<T>(EP_STORE, im.buf(B_XB), 3, 0));
   stage_barrier();
 
   // ---- RDN ------------------------------------------------------------
   conv_stage<7, 8, T>(sm, rank, H, W, 3, 32, im.wt(W_SF1_W), im.wt(W_SF1_B),
-                      plain_src<T>(xb, 3, 0), dst<T>(EP_STORE, sfe1, 32, 0));
+                      plain_src<T>(im.buf(B_XB), 3, 0),
+                      dst<T>(EP_STORE, im.buf(B_SFE1), 32, 0));
   stage_barrier();
-  conv_stage<3, 8, T>(sm, rank, H, W, 32, 32, im.wt(W_SF2_W), im.wt(W_SF2_B),
-                      plain_src<T>(sfe1, 32, 0), dst<T>(EP_STORE, cat, 96, 0));
+  wide_conv<3, 4, 1, EP_STORE>(im, 32, W_SF2_W, M_SF2,
+                               plain_src<T>(im.buf(B_SFE1), 32, 0),
+                               dst<T>(EP_STORE, im.buf(B_CAT), 96, 0));
   stage_barrier();
-  rdb<T>(im, W_RDB0, cat, feats, 128, 0);
+  rdb<T>(im, W_RDB0, M_RDB0, 0);
   // CSAR's output is the next RDB's input: also stored into cat[0:32].
-  csar<T>(im, feats, 128, 0, feats, 128, 32, cat, 96, t32, xin, sa1, sa);
-  rdb<T>(im, W_RDB1, cat, feats, 128, 64);
-  csar<T>(im, feats, 128, 64, feats, 128, 96, nullptr, 0, t32, xin, sa1, sa);
-  conv_stage<1, 8, T>(sm, rank, H, W, 128, 32, im.wt(W_GFF0_W),
-                      im.wt(W_GFF0_B), plain_src<T>(feats, 128, 0),
-                      dst<T>(EP_STORE, t32, 32, 0));
+  csar<T>(im, 0, 32, true);
+  rdb<T>(im, W_RDB1, M_RDB1, 64);
+  csar<T>(im, 64, 96, false);
+  wide_conv<1, 4, 1, EP_STORE>(im, 128, W_GFF0_W, M_GFF0,
+                               plain_src<T>(im.buf(B_FEATS), 128, 0),
+                               dst<T>(EP_STORE, im.buf(B_T32), 32, 0));
   stage_barrier();
   // gff1 3x3 + sfe1 -> xin (free by now).
   {
-    Dst<T> d = dst<T>(EP_RESID, xin, 32, 0);
-    d.res = sfe1;
+    Dst<T> d = dst<T>(EP_RESID, im.buf(B_XIN), 32, 0);
+    d.res = im.buf(B_SFE1);
     d.res_cs = 32;
-    conv_stage<3, 8, T>(sm, rank, H, W, 32, 32, im.wt(W_GFF1_W),
-                        im.wt(W_GFF1_B), plain_src<T>(t32, 32, 0), d);
+    wide_conv<3, 4, 1, EP_RESID>(im, 32, W_GFF1_W, M_GFF1,
+                                 plain_src<T>(im.buf(B_T32), 32, 0), d);
   }
   stage_barrier();
   {
+    const T* xin = im.buf(B_XIN);
     Dst<T> d = dst<T>(EP_FINAL, (T*)nullptr, 1, 0);
     d.outf = out + (size_t)img * H * W;
     conv_stage<3, 1, T>(sm, rank, H, W, 32, 1, im.wt(W_FINAL_W),
@@ -755,10 +1152,12 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
 
 template <class T>
 int launch(const void* x, const void* wbuf, const int* offsets,
-           int n_offsets, void* scratch, void* out, int n, int h, int w,
+           int n_offsets, const void* wmma, const int* mma_offsets,
+           int n_mma, void* scratch, void* out, int n, int h, int w,
            void* stream) {
-  if (n_offsets != W_COUNT || n <= 0 || h <= 0 || w <= 0 || h % 4 != 0 ||
-      w % 4 != 0 || (long long)n * CLUSTER > 0x7fffffffLL)
+  if (n_offsets != W_COUNT || n_mma != M_COUNT || n <= 0 || h <= 0 ||
+      w <= 0 || h % 4 != 0 || w % 4 != 0 ||
+      (long long)n * CLUSTER > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   // The widest staged plane (shallowF1's 7x7: own rows + 6 by w + 6) must
   // leave room for at least one channel.
@@ -770,13 +1169,25 @@ int launch(const void* x, const void* wbuf, const int* offsets,
       return (int)cudaErrorInvalidValue;
     off.o[i] = offsets[i];
   }
+  // The bf16 B tiles: 16-byte aligned (8 elements), read by the bf16
+  // instance only.
+  MOffsets moff;
+  for (int i = 0; i < M_COUNT; ++i) {
+    if (mma_offsets[i] < 0 || mma_offsets[i] % 8 != 0)
+      return (int)cudaErrorInvalidValue;
+    moff.o[i] = mma_offsets[i];
+  }
+  if (std::is_same<T, bf16>::value &&
+      (wmma == nullptr || reinterpret_cast<uintptr_t>(wmma) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       lpsr_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   lpsr_kernel<T><<<n * CLUSTER, NTHREADS, SMEM_BYTES,
                    (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)wbuf, off, (T*)scratch, (float*)out, h, w);
+      (const T*)x, (const float*)wbuf, off, (const bf16*)wmma, moff,
+      (T*)scratch, (float*)out, h, w);
   return (int)cudaGetLastError();
 }
 
@@ -785,21 +1196,30 @@ int launch(const void* x, const void* wbuf, const int* offsets,
 // Launch K2 on `stream`; returns cudaGetLastError() after the launch (0 on
 // success).  x (n, h, w, 3) in the activation type; wbuf the packed float32
 // weights and `offsets` (host memory) their 62 offsets in PACK_KEYS order;
-// scratch n * lpr_lpsr_scratch_elems(h, w) elements of the activation type;
-// out (n, h, w, 1) float32.
+// wmma the wide stages' bf16 B tiles and `mma_offsets` (host memory) their
+// 18 offsets in MMA_KEYS order (read by the bf16 instance; the float32 one
+// runs those stages from wbuf); scratch n * lpr_lpsr_scratch_elems(h, w)
+// elements of the activation type; out (n, h, w, 1) float32.
 extern "C" int lpr_lpsr_bf16(const void* x, const void* wbuf,
-                             const int* offsets, int n_offsets, void* scratch,
-                             void* out, int n, int h, int w, void* stream) {
-  return launch<bf16>(x, wbuf, offsets, n_offsets, scratch, out, n, h, w,
-                      stream);
+                             const int* offsets, int n_offsets,
+                             const void* wmma, const int* mma_offsets,
+                             int n_mma, void* scratch, void* out, int n,
+                             int h, int w, void* stream) {
+  return launch<bf16>(x, wbuf, offsets, n_offsets, wmma, mma_offsets, n_mma,
+                      scratch, out, n, h, w, stream);
 }
 
 extern "C" int lpr_lpsr_f32(const void* x, const void* wbuf,
-                            const int* offsets, int n_offsets, void* scratch,
-                            void* out, int n, int h, int w, void* stream) {
-  return launch<float>(x, wbuf, offsets, n_offsets, scratch, out, n, h, w,
-                       stream);
+                            const int* offsets, int n_offsets,
+                            const void* wmma, const int* mma_offsets,
+                            int n_mma, void* scratch, void* out, int n,
+                            int h, int w, void* stream) {
+  return launch<float>(x, wbuf, offsets, n_offsets, wmma, mma_offsets, n_mma,
+                       scratch, out, n, h, w, stream);
 }
+
+// Entries of the bf16 B-tile table (MMA_KEYS).
+extern "C" int lpr_lpsr_n_mma(void) { return M_COUNT; }
 
 // Scratch elements per image, or -1 for a shape the kernel does not take.
 extern "C" long long lpr_lpsr_scratch_elems(int h, int w) {

@@ -111,6 +111,31 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Library]:
         return {n: _LOADED[n] for n in names}
 
 
+def sass_counts(path: Path, opcode: str) -> Dict[str, int]:
+    """Instructions of each function in a built library whose opcode
+    starts with ``opcode`` (``"HMMA"``: the tensor cores' mma), as
+    ``cuobjdump -sass`` from :func:`nvcc`'s toolkit lists them; keys are
+    the mangled function names it prints."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                         capture_output=True, text=True,
+                         timeout=NVCC_TIMEOUT_S).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts.setdefault(fn, 0)
+        elif fn is not None and "*/" in line:
+            # "/*0120*/  @P0 HMMA.16816.F32.BF16 R4, R8, R12, R4 ; /* .. */"
+            ins = line.split("*/", 1)[1].split()
+            if ins and ins[0].startswith("@"):
+                ins = ins[1:]
+            if ins and ins[0].startswith(opcode):
+                counts[fn] += 1
+    return counts
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     return build([name])[name].cdll

@@ -4,10 +4,15 @@
 - :func:`lpsr_pack` — gathers an :class:`~lpr_tpu_torch.models.lpsr.LPSR`
   module's weights into one packed float32 buffer plus an offset table,
   with each RDB's residual scale ``alpha`` folded into its ``lff`` weight
-  and bias (as ``lpsr_pallas`` folds it).
+  and bias (as ``lpsr_pallas`` folds it), and the 23 wide stages' weights
+  once more as bf16 tiles in the tensor cores' B-operand layout (the
+  folded ``lff`` as an exact bf16 pair hi + lo).
 - :func:`lpsr_fused` — the wrapper.  A CUDA tensor goes to the kernel in
   ``lpr_tpu_torch/csrc/lpsr.cu`` (built with nvcc, loaded with ctypes) or
   raises; only a CPU tensor takes the plain version.
+- :func:`lpsr_work`, :func:`lpsr_stage_work` — what the forward computes,
+  in all and by kernel stage (:data:`STAGES`; :data:`MMA_STAGES` run on
+  the tensor cores in the bf16 kernel).
 - :func:`lpsr_plain` — the same function in plain PyTorch, reading the same
   packed buffer and rounding where the kernel rounds: every convolution
   sums in float32 over the stored inputs, adds its bias in float32 and
@@ -66,15 +71,55 @@ PACK_KEYS: Tuple[str, ...] = (
     + ("gff0.w", "gff0.b", "gff1.w", "gff1.b", "final.w", "final.b"))
 
 
+# The wide stages' bf16 B tiles, in the kernel's order (csrc/lpsr.cu enum
+# M_*); each names the PACK_KEYS weight "<key>.w" it holds.
+MMA_KEYS: Tuple[str, ...] = (
+    ("sf2",)
+    + tuple(f"rdb{r}.{k}" for r in range(2)
+            for k in ("l0", "l1", "l2", "l3", "lff"))
+    + tuple(f"csar.{k}" for k in ("in0", "in1", "sa1", "sa2", "out"))
+    + ("gff0", "gff1"))
+
+# K2's 35 stages in launch order (one cluster barrier after each), and the
+# 23 that the bf16 kernel runs on the tensor cores.
+STAGES: Tuple[str, ...] = tuple(
+    ["conv_in", "enc0.dw", "enc0.pw", "enc1.dw", "enc1.pw", "dec0.dw",
+     "dec0.pw", "dec1.dw", "dec1.pw", "conv_out", "sf1", "sf2"]
+    + [f"rdb0.{k}" for k in ("d0", "d1", "d2", "d3", "lff")]
+    + [f"csar0.{k}" for k in ("in0", "in1", "sa1", "sa2", "ca+out")]
+    + [f"rdb1.{k}" for k in ("d0", "d1", "d2", "d3", "lff")]
+    + [f"csar1.{k}" for k in ("in0", "in1", "sa1", "sa2", "ca+out")]
+    + ["gff0", "gff1", "final"])
+MMA_STAGES = frozenset(
+    ["sf2", "gff0", "gff1"]
+    + [f"rdb{r}.{k}" for r in range(2)
+       for k in ("d0", "d1", "d2", "d3", "lff")]
+    + [f"csar{r}.{k}" for r in range(2)
+       for k in ("in0", "in1", "sa1", "sa2", "ca+out")])
+
+
 class LpsrPacked:
     """One float32 buffer holding every LPSR weight, and the offset (in
     floats, a multiple of 4) and shape of each entry of
-    :data:`PACK_KEYS`."""
+    :data:`PACK_KEYS`; the bf16 B tiles of the wide stages (``mma``) and
+    their offsets (in elements, a multiple of 8) in :data:`MMA_KEYS` order;
+    each RDB's folded ``lff`` weight as its bf16 pair (``lff_hi[r]``,
+    ``lff_lo[r]``, (96, 32)); and ``bf16_exact``: whether those tiles hold
+    the float32 weights exactly (every other wide weight representable in
+    bf16, hi + lo == lff bit for bit), which the bf16 kernel needs."""
 
-    def __init__(self, buf: Tensor, entries: Dict[str, Tuple[int, tuple]]):
+    def __init__(self, buf: Tensor, entries: Dict[str, Tuple[int, tuple]],
+                 mma: Tensor, mma_offsets: Tuple[int, ...],
+                 lff_hi: Tuple[Tensor, ...], lff_lo: Tuple[Tensor, ...],
+                 bf16_exact: bool):
         self.buf = buf
         self.entries = entries
         self.offsets = tuple(entries[k][0] for k in PACK_KEYS)
+        self.mma = mma
+        self.mma_offsets = mma_offsets
+        self.lff_hi = lff_hi
+        self.lff_lo = lff_lo
+        self.bf16_exact = bf16_exact
 
     def __getitem__(self, key: str) -> Tensor:
         off, shape = self.entries[key]
@@ -151,7 +196,47 @@ def lpsr_pack(model) -> LpsrPacked:
         pad = -n % 4                    # 16-byte aligned entries
         parts += [v.reshape(-1), v.new_zeros(pad)]
         off += n + pad
-    return LpsrPacked(torch.cat(parts).contiguous(), entries)
+    w = dict(t)
+
+    # The wide stages' B tiles.  The folded lff needs up to 16 significant
+    # bits: hi = bf16(w), lo = bf16(w - hi) is exact where w is the product
+    # of two bf16 values, and the kernel sums both products.
+    lff_hi = tuple(w[f"rdb{r}.lff.w"].to(torch.bfloat16) for r in range(2))
+    lff_lo = tuple((w[f"rdb{r}.lff.w"] - hi.float()).to(torch.bfloat16)
+                   for r, hi in enumerate(lff_hi))
+    exact = all(torch.equal(hi.float() + lo.float(), w[f"rdb{r}.lff.w"])
+                for r, (hi, lo) in enumerate(zip(lff_hi, lff_lo)))
+    tiles, mma_offsets, moff = [], [], 0
+    for key in MMA_KEYS:
+        if key.endswith(".lff"):
+            r = int(key[3])
+            ws = [lff_hi[r], lff_lo[r]]
+        else:
+            v = w[f"{key}.w"]
+            ws = [v.to(torch.bfloat16)]
+            exact = exact and torch.equal(ws[0].float(), v)
+        mma_offsets.append(moff)
+        tiles.append(_b_tiles(ws))
+        moff += tiles[-1].numel()
+    return LpsrPacked(torch.cat(parts).contiguous(), entries,
+                      torch.cat(tiles).contiguous(), tuple(mma_offsets),
+                      lff_hi, lff_lo, bool(exact))
+
+
+def _b_tiles(parts: List[Tensor]) -> Tensor:
+    """One wide stage's bf16 weights (each part HWIO (k, k, cin, cout) or
+    (cin, cout); two parts for an exact pair hi, lo) as the kernel stages
+    them, flat: per 16-channel input chunk, per part, per tap, per output
+    channel n one 32-byte row of its 16 input channels, whose two 16-byte
+    halves are swapped where bit 2 of n is set (the XOR swizzle of
+    csrc/mma_conv.cuh)."""
+    w = torch.stack([v.reshape(-1, *v.shape[-2:]) for v in parts])
+    n_parts, taps, cin, cout = w.shape
+    w = w.reshape(n_parts, taps, cin // 16, 2, 8, cout)
+    w = w.permute(2, 0, 1, 5, 3, 4)          # chunk, part, tap, n, half, 8
+    swap = ((torch.arange(cout, device=w.device) >> 2) & 1).bool()
+    w = torch.where(swap[:, None, None], w.flip(4), w)
+    return w.reshape(-1)
 
 
 def _conv(z: Tensor, w: Tensor, b=None, groups: int = 1) -> Tensor:
@@ -233,6 +318,16 @@ def lpsr_errors(got: Tensor, ref: Tensor) -> Tuple[float, float]:
     return err.max().item(), err.mean().item()
 
 
+# lpr_lpsr_bf16 / lpr_lpsr_f32: x, wbuf, offsets, n_offsets, wmma,
+# mma_offsets, n_mma, scratch, out, n, h, w, stream.
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 2
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                      ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+
+
 @functools.cache
 def _lib():
     from lpr_tpu_torch.kernels._build import library
@@ -240,10 +335,7 @@ def _lib():
     lib = library("lpsr")
     for name in ("lpr_lpsr_bf16", "lpr_lpsr_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 2
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+        fn.argtypes = LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
     lib.lpr_lpsr_scratch_elems.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.lpr_lpsr_scratch_elems.restype = ctypes.c_longlong
@@ -255,9 +347,10 @@ def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
     float32.
 
     A CUDA tensor launches the K2 kernel on the current stream (bfloat16
-    or float32 activations, contiguous, H % 4 == 0, W % 4 == 0; anything
-    else raises) and adds one to ``lpsr_fused.launches``; a CPU tensor
-    takes :func:`lpsr_plain`."""
+    or float32 activations, contiguous, H % 4 == 0, W % 4 == 0; bfloat16
+    only with a pack whose ``bf16_exact`` holds, since its wide stages run
+    on the bf16 tiles; anything else raises) and adds one to
+    ``lpsr_fused.launches``; a CPU tensor takes :func:`lpsr_plain`."""
     if x.device.type == "cpu":
         return lpsr_plain(x, packed)
     if x.device.type != "cuda":
@@ -273,11 +366,19 @@ def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
                          f"got {(h, w)}")
     if not x.is_contiguous():
         raise ValueError("lpsr_fused takes a contiguous NHWC tensor")
-    buf = packed.buf
+    buf, mma = packed.buf, packed.mma
     if (buf.device != x.device or buf.dtype != torch.float32
             or not buf.is_contiguous() or buf.data_ptr() % 16):
         raise ValueError(f"packed weights must be a contiguous, 16-byte "
                          f"aligned float32 buffer on {x.device}")
+    if (mma.device != x.device or mma.dtype != torch.bfloat16
+            or not mma.is_contiguous() or mma.data_ptr() % 16):
+        raise ValueError(f"packed B tiles must be a contiguous, 16-byte "
+                         f"aligned bfloat16 buffer on {x.device}")
+    if x.dtype == torch.bfloat16 and not packed.bf16_exact:
+        raise ValueError("the bf16 kernel runs its wide stages on bf16 "
+                         "weights, and this pack's are not exact in bf16: "
+                         "pack a bf16 model (model.to(torch.bfloat16))")
     lib = _lib()
     per_image = lib.lpr_lpsr_scratch_elems(h, w)
     if per_image <= 0:
@@ -285,11 +386,13 @@ def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
     scratch = torch.empty(n * per_image, dtype=x.dtype, device=x.device)
     out = torch.empty((n, h, w, 1), dtype=torch.float32, device=x.device)
     offs = (ctypes.c_int * len(packed.offsets))(*packed.offsets)
+    moffs = (ctypes.c_int * len(packed.mma_offsets))(*packed.mma_offsets)
     fn = lib.lpr_lpsr_bf16 if x.dtype == torch.bfloat16 else lib.lpr_lpsr_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), buf.data_ptr(), offs, len(offs),
-                 scratch.data_ptr(), out.data_ptr(), n, h, w, stream)
+                 mma.data_ptr(), moffs, len(moffs), scratch.data_ptr(),
+                 out.data_ptr(), n, h, w, stream)
     if err != 0:
         raise RuntimeError(f"lpsr kernel launch failed: cudaError {err}")
     lpsr_fused.launches += 1
@@ -327,3 +430,29 @@ def lpsr_work(n: int, h: int, w: int) -> Tuple[int, int]:
                  + 128 * 32 + 32 + 9 * 32 * 32 + 32 + 9 * 32 + 1)
     nbytes = n * p * (3 * 2 + 4) + 4 * n_weights
     return 2 * n * (ae + rdn), nbytes
+
+
+def lpsr_stage_work(n: int, h: int, w: int) -> Dict[str, int]:
+    """Multiply-adds of each of K2's :data:`STAGES` (in that order) on n
+    images of h x w, each convolution at its own resolution; the CSAR's
+    channel-attention layers count with its conv_out (stage "ca+out").
+    Twice their sum is :func:`lpsr_work`'s operations."""
+    p, p2, p4 = h * w, (h // 2) * (w // 2), (h // 4) * (w // 4)
+    per = {"conv_in": p * 9 * 3 * 12,
+           "enc0.dw": p * 25 * 12, "enc0.pw": p * 12 * 12,
+           "enc1.dw": p2 * 25 * 48, "enc1.pw": p2 * 48 * 12,
+           "dec0.dw": p4 * 25 * 48, "dec0.pw": p4 * 48 * 48,
+           "dec1.dw": p2 * 25 * 12, "dec1.pw": p2 * 12 * 48,
+           "conv_out": p * 9 * 12 * 3,
+           "sf1": p * 49 * 3 * 32, "sf2": p * 9 * 32 * 32}
+    for r in range(2):
+        per.update({f"rdb{r}.d{i}": p * 9 * (32 + 16 * i) * 16
+                    for i in range(4)})
+        per[f"rdb{r}.lff"] = p * 96 * 32
+        per.update({f"csar{r}.in0": p * 9 * 32 * 32,
+                    f"csar{r}.in1": p * 9 * 32 * 32,
+                    f"csar{r}.sa1": p * 32 * 64, f"csar{r}.sa2": p * 64 * 32,
+                    f"csar{r}.ca+out": p * 64 * 32 + 32 * 8 + 8 * 32})
+    per.update({"gff0": p * 128 * 32, "gff1": p * 9 * 32 * 32,
+                "final": p * 9 * 32})
+    return {k: n * per[k] for k in STAGES}

@@ -7,9 +7,14 @@ a ``%globaltimer`` stamp after every cluster barrier, as seen by block 0,
 into ``build/lpr_tpu_torch/``; runs it on N random 32x192 crops with the
 repo's LPSR weights in bf16; and prints, with the card's name and power
 limit, each of the 35 stages' time (the slowest block of the first
-cluster sets it, since a stage ends at a barrier), largest first.  The
-stamps cost one timer read per stage; the kernel is otherwise the same.
-Run from the repo root.
+cluster sets it, since a stage ends at a barrier), largest first, beside
+its multiply-adds (``kernels/lpsr.py`` ``lpsr_stage_work``), its bound at
+the 989 TFLOP/s bf16 rate and its route in the current source (``mma``:
+tensor cores, ``scalar``: float32 FMA).  An older source (for example
+``git show <commit>:lpr_tpu_torch/csrc/lpsr.cu > build/lpsr_old.cu``)
+is launched with the launcher arguments it declares, so before and after
+can come from one call on one card.  The stamps cost one timer read per
+stage; the kernel is otherwise the same.  Run from the repo root.
 """
 
 from __future__ import annotations
@@ -18,17 +23,13 @@ import argparse
 import ctypes
 import subprocess
 from pathlib import Path
+from typing import List, Optional, Tuple
 
 import torch
 
-STAGES = (
-    ["conv_in", "enc0.dw", "enc0.pw", "enc1.dw", "enc1.pw", "dec0.dw",
-     "dec0.pw", "dec1.dw", "dec1.pw", "conv_out", "sf1", "sf2"]
-    + [f"rdb0.{k}" for k in ("d0", "d1", "d2", "d3", "lff")]
-    + [f"csar0.{k}" for k in ("in0", "in1", "sa1", "sa2", "ca+out")]
-    + [f"rdb1.{k}" for k in ("d0", "d1", "d2", "d3", "lff")]
-    + [f"csar1.{k}" for k in ("in0", "in1", "sa1", "sa2", "ca+out")]
-    + ["gff0", "gff1", "final"])
+from lpr_tpu_torch.kernels.lpsr import (LAUNCH_ARGTYPES, MMA_STAGES, STAGES,
+                                        lpsr_stage_work)
+from lpr_tpu_torch.tools._timing import PEAK_BF16_FLOPS
 
 _BARRIER = """__device__ __forceinline__ void stage_barrier() {
   __threadfence();
@@ -37,7 +38,7 @@ _BARRIER = """__device__ __forceinline__ void stage_barrier() {
 _STAMPED = """__device__ unsigned long long g_stamps[64];
 __device__ int g_nstamps;
 __device__ __forceinline__ void stamp() {
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && g_nstamps < 64) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     g_stamps[g_nstamps++] = t;
@@ -73,36 +74,60 @@ def stamped_source(text: str) -> str:
     return text + _READ
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--source", default="lpr_tpu_torch/csrc/lpsr.cu")
-    ap.add_argument("--n", type=int, default=24)
-    args = ap.parse_args()
+# A source from before the wide stages' bf16 tiles declares no
+# lpr_lpsr_n_mma and launches without the tile arguments.
+_OLD_ARGTYPES = ([ctypes.c_void_p] * 2
+                 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p])
 
+
+def report(us, n, h, w):
+    """Lines, largest time first: stage, time, multiply-adds, bound at the
+    bf16 peak, route."""
+    work = lpsr_stage_work(n, h, w)
+    lines = []
+    for name, v in sorted(zip(STAGES, us), key=lambda z: -z[1]):
+        bound = 2 * work[name] / PEAK_BF16_FLOPS * 1e6
+        route = "mma" if name in MMA_STAGES else "scalar"
+        lines.append(f"{name:14s} {v:9.1f} us  {work[name] / 1e6:9.2f} M "
+                     f"multiply-adds  bound {bound:7.3f} us  {route}")
+    return lines
+
+
+def build_stamped(text: str, name: str) -> Path:
+    """Compile :func:`stamped_source` of a K2 source text into
+    ``build/lpr_tpu_torch/liblpr_tpu_torch_<name>_stamped.so``."""
+    from lpr_tpu_torch.kernels._build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / f"{name}_stamped.cu"
+    src.write_text(stamped_source(text))
+    so = BUILD_DIR / f"liblpr_tpu_torch_{src.stem}.so"
+    # -I: the includes of the kernel sources (mma_conv.cuh).
+    subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(so),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    return so
+
+
+def stage_us(so: Path, n: int, h: int = 32, w: int = 192,
+             iters: int = 0) -> Tuple[List[float], Optional[float]]:
+    """Each stage's time (us, block 0's clock) of a stamped K2 library on
+    n random h x w crops with the repo's LPSR weights in bf16, from the
+    last of three runs; and, with ``iters``, the whole kernel's mean ms
+    over that many launches by CUDA events (else None)."""
     from lpr_tpu_torch.kernels import lpsr as kl
-    from lpr_tpu_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, nvcc
     from lpr_tpu_torch.models.lpsr import load_lpsr
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = BUILD_DIR / "lpsr_stamped.cu"
-    src.write_text(stamped_source(Path(args.source).read_text()))
-    so = BUILD_DIR / "liblpr_tpu_torch_lpsr_stamped.so"
-    subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(so), str(src)],
-                   check=True, capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(so))
     fn = lib.lpr_lpsr_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 2
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
+    tiles = hasattr(lib, "lpr_lpsr_n_mma")
+    fn.argtypes = LAUNCH_ARGTYPES if tiles else _OLD_ARGTYPES
     fn.restype = ctypes.c_int
+    lib.lpr_lpsr_scratch_elems.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.lpr_lpsr_scratch_elems.restype = ctypes.c_longlong
-
-    n, h, w = args.n, 32, 192
+    lib.lpr_lpsr_read_stamps.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.lpr_lpsr_read_stamps.restype = ctypes.c_int
     packed = kl.lpsr_pack(load_lpsr(
         "checkpoints/lpsr_synth_glare/best_model.npz").to(torch.bfloat16))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -112,11 +137,15 @@ def main() -> int:
                           dtype=torch.bfloat16, device="cuda")
     out = torch.empty((n, h, w, 1), dtype=torch.float32, device="cuda")
     offs = (ctypes.c_int * len(packed.offsets))(*packed.offsets)
+    moffs = (ctypes.c_int * len(packed.mma_offsets))(*packed.mma_offsets)
+    weights = [packed.buf.data_ptr(), offs, len(offs)]
+    if tiles:
+        weights += [packed.mma.data_ptr(), moffs, len(moffs)]
     stamps = (ctypes.c_ulonglong * 64)()
     lib.lpr_lpsr_read_stamps(stamps)
     for _ in range(3):                       # the last run is reported
-        err = fn(x.data_ptr(), packed.buf.data_ptr(), offs, len(offs),
-                 scratch.data_ptr(), out.data_ptr(), n, h, w,
+        err = fn(x.data_ptr(), *weights, scratch.data_ptr(),
+                 out.data_ptr(), n, h, w,
                  torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if err != 0:
@@ -125,12 +154,41 @@ def main() -> int:
     if count != len(STAGES) + 1:
         raise RuntimeError(f"{count} stamps for {len(STAGES)} stages")
     t = [stamps[i] for i in range(count)]
-    us = [(b - a) / 1e3 for a, b in zip(t, t[1:])]
-    print(f"card: {card}")
+    ms = None
+    if iters:
+        from lpr_tpu_torch.tools._timing import event_ms
+
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = event_ms(lambda: fn(x.data_ptr(), *weights, scratch.data_ptr(),
+                                 out.data_ptr(), n, h, w, stream), iters)
+        lib.lpr_lpsr_read_stamps(stamps)
+    return [(b - a) / 1e3 for a, b in zip(t, t[1:])], ms
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--source", default="lpr_tpu_torch/csrc/lpsr.cu")
+    ap.add_argument("--n", type=int, default=24)
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+
+    from lpr_tpu_torch.tools._timing import card
+
+    n, h, w = args.n, 32, 192
+    so = build_stamped(Path(args.source).read_text(),
+                       Path(args.source).stem)
+    us, ms = stage_us(so, n, h, w, args.iters)
+    print(f"card: {card(torch.device('cuda'))}")
     print(f"K2 stages from {args.source} at ({n}, {h}, {w}, 3) bf16: "
-          f"{(t[-1] - t[0]) / 1e3:.1f} us in all (block 0's clock)")
-    for name, v in sorted(zip(STAGES, us), key=lambda z: -z[1]):
-        print(f"  {name:14s} {v:9.1f} us")
+          f"{sum(us):.1f} us in all (block 0's clock); the kernel "
+          f"{ms:.4f} ms (CUDA events, mean of {args.iters} launches of the "
+          f"stamped build); route as in the current source")
+    for line in report(us, n, h, w):
+        print(f"  {line}")
+    mma_us = sum(v for name, v in zip(STAGES, us) if name in MMA_STAGES)
+    print(f"  the {len(MMA_STAGES)} mma stages {mma_us:.1f} us, the "
+          f"{len(STAGES) - len(MMA_STAGES)} scalar stages "
+          f"{sum(us) - mma_us:.1f} us")
     return 0
 
 

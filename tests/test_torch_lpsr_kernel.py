@@ -122,11 +122,100 @@ def test_lpsr_work_at_the_production_shape():
     assert nbytes - io == 4 * n_weights
 
 
+# K2's shapes on the card: the main path's, and ones where a block owns 0-1
+# rows of the quarter grid, M is not a multiple of 16, the rows split into
+# slabs (48 rows) or the columns do (400).
+CARD_SHAPES = [(24, 32, 192), (1, 32, 192), (7, 32, 192), (2, 16, 96),
+               (2, 48, 200), (3, 8, 64), (1, 8, 400)]
+
+
+def test_lpsr_pack_splits_lff_exactly_and_flags_bf16_exactness():
+    """The folded lff weight as a bf16 pair hi + lo, bit for bit, for the
+    real checkpoint in bf16; bf16_exact holds there, and not for the same
+    checkpoint in float32."""
+    packed = kl.lpsr_pack(tlpsr.load_lpsr(LPSR, device="cpu")
+                          .to(torch.bfloat16))
+    for r in range(2):
+        hi, lo = packed.lff_hi[r], packed.lff_lo[r]
+        assert hi.dtype == lo.dtype == torch.bfloat16
+        assert hi.shape == lo.shape == (96, 32)
+        w = packed[f"rdb{r}.lff.w"]
+        assert torch.equal((hi.float() + lo.float()).view(torch.int32),
+                           w.view(torch.int32))
+        assert (lo != 0).any()          # the product needs both halves
+    assert packed.bf16_exact
+    assert packed.mma.dtype == torch.bfloat16
+    assert len(packed.mma_offsets) == len(kl.MMA_KEYS) == 18
+    assert all(o % 8 == 0 for o in packed.mma_offsets)
+    assert not kl.lpsr_pack(tlpsr.load_lpsr(LPSR, device="cpu")).bf16_exact
+
+
+def test_lpsr_pack_b_tiles_hold_the_weights():
+    """The bf16 B tiles, unswizzled, give back each wide stage's weights:
+    per 16-channel chunk, per part, per tap, per output channel, its 16
+    input channels with the 16-byte halves swapped where bit 2 of the
+    output channel is set."""
+    packed = kl.lpsr_pack(tlpsr.load_lpsr(LPSR, device="cpu")
+                          .to(torch.bfloat16))
+    ends = list(packed.mma_offsets[1:]) + [packed.mma.numel()]
+    for key, start, end in zip(kl.MMA_KEYS, packed.mma_offsets, ends):
+        if key.endswith(".lff"):
+            r = int(key[3])
+            parts = [packed.lff_hi[r].float(), packed.lff_lo[r].float()]
+        else:
+            parts = [packed[f"{key}.w"]]
+        w = torch.stack([v.reshape(-1, *v.shape[-2:]) for v in parts])
+        n_parts, taps, cin, cout = w.shape
+        t = packed.mma[start:end].float().view(cin // 16, n_parts, taps,
+                                               cout, 2, 8)
+        swap = ((torch.arange(cout) >> 2) & 1).bool()
+        t = torch.where(swap[:, None, None], t.flip(4), t)
+        got = t.permute(1, 2, 0, 4, 5, 3).reshape(n_parts, taps, cin, cout)
+        assert torch.equal(got, w), key
+
+
+def test_lpsr_stage_work_sums_to_lpsr_work():
+    """35 stages in the stage tool's order; twice their multiply-adds are
+    lpsr_work's operations; the 23 tensor-core stages hold >= 94 % of the
+    work."""
+    for shape in [(24, 32, 192), (1, 8, 64), (2, 48, 200)]:
+        work = kl.lpsr_stage_work(*shape)
+        assert tuple(work) == kl.STAGES and len(kl.STAGES) == 35
+        assert 2 * sum(work.values()) == kl.lpsr_work(*shape)[0]
+        mma = sum(v for k, v in work.items() if k in kl.MMA_STAGES)
+        assert len(kl.MMA_STAGES) == 23 and kl.MMA_STAGES <= set(kl.STAGES)
+        assert mma >= 0.94 * sum(work.values())
+
+
+def test_stage_tool_finds_its_anchors_in_the_kernel_source():
+    """tools/lpsr_stages.py stamps K2's source at the kernel's start,
+    after every stage barrier and at its end: the committed source must
+    hold each anchor once."""
+    from pathlib import Path
+
+    from lpr_tpu_torch.kernels._build import CSRC
+    from lpr_tpu_torch.tools import lpsr_stages
+
+    text = (Path(CSRC) / "lpsr.cu").read_text()
+    stamped = lpsr_stages.stamped_source(text)
+    assert stamped.count("stamp();") == 3
+    assert "lpr_lpsr_read_stamps" in stamped
+    assert lpsr_stages.STAGES == kl.STAGES
+    lines = lpsr_stages.report([1.0] * 35, 24, 32, 192)
+    assert len(lines) == 35
+    assert sum(line.endswith(" mma") for line in lines) == 23
+    with pytest.raises(ValueError):
+        lpsr_stages.stamped_source(text.replace("stage_barrier() {", "x"))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_kernel_matches_plain_version_on_card(dtype):
-    """K2 vs lpsr_plain on the card at the main path's (24, 32, 192, 3),
-    real weights, within kl.TOL_MAX / TOL_MEAN of the activation dtype."""
+def test_kernel_matches_plain_version_on_card(dtype, shape):
+    """K2 vs lpsr_plain on the card at the main path's (24, 32, 192, 3)
+    and the other CARD_SHAPES, real weights, within kl.TOL_MAX / TOL_MEAN
+    of the activation dtype; a bf16 launch with a pack that is not exact
+    in bf16 raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -135,7 +224,10 @@ def test_kernel_matches_plain_version_on_card(dtype):
     model = tlpsr.load_lpsr(LPSR, device="cuda").to(dt)
     p = kl.lpsr_pack(model)
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.rand((24, 32, 192, 3), generator=g, device="cuda").to(dt)
+    x = torch.rand((*shape, 3), generator=g, device="cuda").to(dt)
+    if dt == torch.float32:
+        with pytest.raises(ValueError):
+            kl.lpsr_fused(x.to(torch.bfloat16), p)
     before = kl.lpsr_fused.launches
     got = kl.lpsr_fused(x, p)
     ref = kl.lpsr_plain(x, p)
@@ -144,3 +236,31 @@ def test_kernel_matches_plain_version_on_card(dtype):
     max_err, mean_err = kl.lpsr_errors(got, ref)
     assert max_err < kl.TOL_MAX[dt], max_err
     assert mean_err < kl.TOL_MEAN[dt], mean_err
+
+
+def test_sass_counts_reads_a_cuobjdump_listing(monkeypatch):
+    """_build.sass_counts, which chip_smoke.py uses to show HMMA in
+    lpsr_kernel<bf16>: opcodes counted per function, predicated ones too,
+    and the encoding lines skipped."""
+    import subprocess
+    import types
+
+    from lpr_tpu_torch.kernels import _build
+
+    listing = """
+        code for sm_90a
+                Function : _ZN2_111lpsr_kernelI13__nv_bfloat16EEvPKT_
+        .headerflags    @"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;  /* 0x0 */
+        /*0020*/               @P0 HMMA.16816.F32.BF16 R4, R8, R14, R4 ;  /* 0x0 */
+                Function : _ZN2_111lpsr_kernelIfEEvPKT_
+        /*0000*/                   FFMA R1, R2, R3, R1 ;    /* 0x0 */
+"""
+    monkeypatch.setattr(_build, "nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    monkeypatch.setattr(subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=listing))
+    assert _build.sass_counts("lib.so", "HMMA") == {
+        "_ZN2_111lpsr_kernelI13__nv_bfloat16EEvPKT_": 2,
+        "_ZN2_111lpsr_kernelIfEEvPKT_": 0}

@@ -16,7 +16,7 @@ from lpr_tpu_torch.kernels.yolo_front import front_pack
 from lpr_tpu_torch.kernels.yolo_mid import mid_pack
 from lpr_tpu_torch.models import yolo as tyolo
 from lpr_tpu_torch.pipeline.recognizer import STEP_STAGES, to_host
-from lpr_tpu_torch.tools import (bench_convs, prof_pipeline,
+from lpr_tpu_torch.tools import (bench_convs, bench_sr_convs, prof_pipeline,
                                  probe_front_stages, profile_detector_layers,
                                  profile_stages)
 from lpr_tpu_torch.tools.profile_detector_layers import prefix_forward
@@ -166,6 +166,8 @@ TINY = {
     "prof_pipeline": [],
     "bench_convs": ["--batch", "1", "--iters", "1", "--rounds", "1",
                     "--div", "8"],
+    "bench_sr_convs": ["--n", "1", "--iters", "1", "--rounds", "1",
+                       "--div", "4"],
 }
 EXPECT = {
     "probe_front_stages": ["front[dma ]", "front[stem]", "front[down]",
@@ -174,6 +176,10 @@ EXPECT = {
     "profile_detector_layers": ["[0.. 2] C3", "[0..24] Detect"],
     "prof_pipeline": ["stage=det_nms det=64 B=1"],
     "bench_convs": ["stem S2D 12->32", "char C3 32->32 k3", "skipped"],
+    "bench_sr_convs": ["LPSR.forward (1 crops, 8x48, composed)",
+                       "char OCR forward (2 canvases, 32^2)",
+                       "dense 3x3  80->16 @8x48", "lff   1x1  96->32",
+                       "one RDB (4 dense + lff, composed)"],
 }
 
 
@@ -182,7 +188,8 @@ def test_tool_main_runs_on_cpu(tool, monkeypatch, capsys):
     mod = {"probe_front_stages": probe_front_stages,
            "profile_stages": profile_stages,
            "profile_detector_layers": profile_detector_layers,
-           "prof_pipeline": prof_pipeline, "bench_convs": bench_convs}[tool]
+           "prof_pipeline": prof_pipeline, "bench_convs": bench_convs,
+           "bench_sr_convs": bench_sr_convs}[tool]
     for k, v in {"PROF_DET_HW": "64", "PROF_BATCH": "1", "PROF_STEPS": "1",
                  "PROF_STAGE": "det_nms"}.items():
         monkeypatch.setenv(k, v)
