@@ -11,21 +11,29 @@ Phases, each printing one line with its elapsed seconds:
    K4 stage variants, lpsr K2, yolo_mid K3) built with nvcc (one process
    per source, all started together), loaded with ctypes; prints nvcc's
    register / shared-memory / spill report and the HMMA (tensor-core mma)
-   instructions in lpsr_kernel<bf16> by cuobjdump -sass (fails if none).
+   instructions by cuobjdump -sass in lpsr_kernel<bf16> and in K1's
+   front_kernel instances but the dma one (fails if lpsr_kernel<bf16> or
+   front_kernel<FULL> has none).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes (K1 on frames, K2 on 24 plate crops in bf16 and
    float32, K3 on K1's output for 8 frames; the real weights), with the
    tolerance stated beside it, then both timed with CUDA events (plain,
-   kernel, kernel, plain).  K2 also at the further shapes of
-   tests/test_torch_lpsr_kernel.py in bf16, and beside it LPSR.forward in
-   bf16, the composed library yardstick (its library_ms).
+   kernel, kernel, plain).  K1 also at the further shapes of
+   tests/test_torch_front.py, and a launch with a pack that is not
+   bf16-exact must raise ValueError; beside K1 the model's own layers 0-2
+   in bf16 through cuDNN, the composed library yardstick (its library_ms).
+   K2 also at the further shapes of tests/test_torch_lpsr_kernel.py in
+   bf16, and beside it LPSR.forward in bf16, the composed library
+   yardstick (its library_ms).
 4. probe   — K4, K1's four stage variants (dma, stem, down, full; one
    instance each of the K1 source): the probe tool's timing of them at
    (8, 736, 1280, 3) (K4's path, with its launch counts), then each
    against its plain version on the same frames and real weights (dma
    exact, stem and down within K1's bound, full bit-identical to K1's
    output in phase kernels), timed (plain, kernel, kernel, plain) beside
-   its bound.
+   its bound and the model's own layers computing the same stage through
+   cuDNN (stem: layer 0, down: layers 0-1, full: layers 0-2; none for
+   dma).
 5. slice   — PlateRecognizer at the production configuration (720p frames,
    detector at 736x1280, bf16, the repo's checkpoints) on 8 frames made
    with numpy from a fixed seed (lpr_tpu_torch.tools.synth): output shapes
@@ -82,6 +90,8 @@ HEAD_MAX_ERR = 0.5
 HEAD_MEAN_ERR = 0.05
 LPSR_N = BATCH * 3      # plate crops per step: batch x max_plates
 LPSR_HW = (32, 192)
+# K1's further shapes (B, H, W): as tests/test_torch_front.py's.
+K1_SHAPES = [(1, 1280, 1280), (1, 64, 128), (3, 32, 64)]
 # K2's further shapes (N, H, W): as tests/test_torch_lpsr_kernel.py's.
 K2_SHAPES = [(1, 32, 192), (7, 32, 192), (2, 16, 96), (2, 48, 200),
              (3, 8, 64), (1, 8, 400)]
@@ -145,6 +155,17 @@ def main() -> int:
           f"lpsr_kernel<float> {k2_hmma['float']}", flush=True)
     if k2_hmma["bf16"] < 1:
         raise AssertionError("no HMMA in lpsr_kernel<bf16>")
+    # K1's instances front_kernel<STAGE> (mangled front_kernelILi<STAGE>E);
+    # the dma one stages its input and multiplies nothing.
+    hmma = _build.sass_counts(libs["yolo_front"].path, "HMMA")
+    k1_hmma = {st: sum(c for fn, c in hmma.items()
+                       if f"front_kernelILi{i}E" in fn)
+               for i, st in enumerate(kf.STAGES) if st != "dma"}
+    print(f"K1 HMMA instructions: " + ", ".join(
+        f"front_kernel<{st.upper()}> {c}" for st, c in k1_hmma.items()),
+        flush=True)
+    if k1_hmma["full"] < 1:
+        raise AssertionError("no HMMA in front_kernel<FULL>")
     phase("build", t, f"; {sorted(libs)}; dynamic smem per block {smem} B")
 
     def counts_to_zero():
@@ -174,44 +195,71 @@ def main() -> int:
     kernels = []
     iters = 20
 
-    # K1 — the detector front, on frames.
+    # K1 — the detector front, on frames: the main path's slice of two
+    # frames first, then the square detector, the CPU tests' frame and the
+    # least whole tile.
     plate = load_plate_detector(CKPT_PLATE).to(torch.bfloat16)
     packed = kf.front_pack(plate)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x2 = torch.rand((2, *DET_HW, 3), generator=gen, device="cuda"
-                    ).to(torch.bfloat16)
-    got = kf.yolo_front(x2, packed)
-    ref = kf.front_plain(x2, packed)
-    torch.cuda.synchronize()
-    max_err, ratio, mean_int = kf.front_errors(got, ref)
-    diff = (got.float() - ref.float()).abs()
-    n_ulp = int((diff > 0).sum().item())
-    print(f"K1 yolo_front vs front_plain (2, {DET_HW[0]}, {DET_HW[1]}, 3) "
-          f"bf16: max_abs_err {max_err}, max err/(abs {kf.TOL_ABS} + rel "
-          f"{kf.TOL_REL}) {ratio} (< 1), interior mean {mean_int} "
-          f"(< {kf.TOL_INTERIOR_MEAN}), {n_ulp} of {got.numel()} differ, "
-          f"max |plain| {ref.float().abs().max().item()}, worst at "
-          f"{[int(i) for i in torch.nonzero(diff == diff.max())[0]]}",
-          flush=True)
-    if not (ratio < 1.0 and mean_int < kf.TOL_INTERIOR_MEAN):
-        raise AssertionError("K1 disagrees with its plain version")
+    k1_max_err = None
+    for shape in [(2, *DET_HW)] + K1_SHAPES:
+        xs = torch.rand((*shape, 3), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        got = kf.yolo_front(xs, packed)
+        ref = kf.front_plain(xs, packed)
+        torch.cuda.synchronize()
+        max_err, ratio, mean_int = kf.front_errors(got, ref)
+        diff = (got.float() - ref.float()).abs()
+        n_ulp = int((diff > 0).sum().item())
+        print(f"K1 yolo_front vs front_plain {(*shape, 3)} bf16: "
+              f"max_abs_err {max_err}, max err/(abs {kf.TOL_ABS} + rel "
+              f"{kf.TOL_REL}) {ratio} (< 1), interior mean {mean_int} "
+              f"(< {kf.TOL_INTERIOR_MEAN}), {n_ulp} of {got.numel()} "
+              f"differ, max |plain| {ref.float().abs().max().item()}, "
+              f"worst at "
+              f"{[int(i) for i in torch.nonzero(diff == diff.max())[0]]}",
+              flush=True)
+        if not (ratio < 1.0 and mean_int < kf.TOL_INTERIOR_MEAN):
+            raise AssertionError(f"K1 disagrees with its plain version at "
+                                 f"{shape}")
+        if k1_max_err is None:
+            k1_max_err = max_err         # the main path's shape
+    # A pack whose weights bf16 would round is refused, and nothing runs.
+    packed32 = kf.front_pack(load_plate_detector(CKPT_PLATE))
+    launches_before = kf.yolo_front.launches
+    try:
+        kf.yolo_front(xs, packed32)
+    except ValueError as e:
+        print(f"K1 with a pack that is not bf16-exact: ValueError ({e})",
+              flush=True)
+    else:
+        raise AssertionError("K1 took a pack that is not bf16-exact")
+    if kf.yolo_front.launches != launches_before:
+        raise AssertionError("K1 counted a refused launch")
     x8 = torch.rand((BATCH, *DET_HW, 3), generator=gen, device="cuda"
                     ).to(torch.bfloat16)
     k_ms, plain_ms, runs = timed(lambda: kf.yolo_front(x8, packed),
                                  lambda: kf.front_plain(x8, packed), iters)
+    # The library yardstick: the model's own layers 0-2 in bf16 through
+    # cuDNN (three convolutions and the C3's seven layers; no single
+    # PyTorch call computes them).
+    with torch.inference_mode():
+        k1_lib_ms = _timing.event_ms(
+            lambda: plate.forward_from(x8, 0, 3), iters)
     bound_ms, bound_by = _timing.bound_ms(kf.front_work(BATCH, *DET_HW))
     print(f"K1 timing at ({BATCH}, {DET_HW[0]}, {DET_HW[1]}, 3) on {card}: "
           f"kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs plain, "
-          f"kernel, kernel, plain {runs}), bound {bound_ms:.4f} ms "
+          f"kernel, kernel, plain {runs}), library (layers 0-2 bf16, "
+          f"cuDNN) {k1_lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}; {kf.front_work(BATCH, *DET_HW)} FLOP, B)",
           flush=True)
     kernels.append({
         "name": "yolo_front", "route": "cuda",
         "source": "lpr_tpu_torch/csrc/yolo_front.cu",
         "replaces": "lpr_tpu/ops/pallas/yolo_front.py:461",
-        "launches": None, "max_abs_err": max_err, "ms": k_ms,
+        "launches": None, "max_abs_err": k1_max_err, "ms": k_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": k1_lib_ms,
     })
 
     # K2 — the LPSR stage, on the main path's 24 plate crops (bf16 and
@@ -343,10 +391,17 @@ def main() -> int:
         k_ms, plain_ms, runs = timed(
             lambda: kf.front_stage(x8, packed, stage),
             lambda: kf.front_stage_plain(x8, packed, stage), iters)
+        # The model's own layers up to the same stage in bf16 (cuDNN).
+        lib_ms, stop = None, kf.STAGES.index(stage)
+        if stop:
+            with torch.inference_mode():
+                lib_ms = _timing.event_ms(
+                    lambda: plate.forward_from(x8, 0, stop), iters)
         work = kf.front_stage_work(stage, BATCH, *DET_HW)
         bound_ms, bound_by = _timing.bound_ms(work)
         print(f"K4 {stage} timing at {tuple(x8.shape)} on {card}: kernel "
-              f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs {runs}), bound "
+              f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs {runs}), "
+              f"library (layers [0, {stop}) bf16, cuDNN) {lib_ms}, bound "
               f"{bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)", flush=True)
         kernels.append({
             "name": f"yolo_front_stage[{stage}]", "route": "cuda",
@@ -354,7 +409,7 @@ def main() -> int:
             "replaces": "tools/probe_front_stages.py:53",
             "launches": probe_counts[stage], "max_abs_err": max_err,
             "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": lib_ms,
         })
     print("kernels: " + ", ".join(
         f"{k['name']} ({k['route']}, {k['source']}, replaces "

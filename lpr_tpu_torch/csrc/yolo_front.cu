@@ -17,17 +17,59 @@
 // card it is compute-bound: ~6.0 us per image at the 989 TFLOP/s bf16
 // tensor-core rate, ~3.9 us for the bytes alone.
 //
-// Design (the simple first version): one thread block per (image, 8x16 tile
-// of the H/4 x W/4 output grid).  The block recomputes in shared memory the
-// halo each later layer needs (stem tile 21x37, down tile 10x18 with the
-// 1-position halo of m.cv2's 3x3), so no intermediate activation goes to
-// device memory — what the TPU kernel keeps in VMEM.  Intermediates are
-// stored in bf16 and every sum is taken in fp32, as the TPU kernel does.
-// Every layer re-zeroes the positions of its tile that lie outside the
-// layer's domain, which is the zero padding the next conv expects; blocks
-// share nothing, so each one initialises all it reads.  Arithmetic is
-// scalar fp32 FMA on the CUDA cores: far from the tensor-core bound; wgmma,
-// TMA and a layout for them are later work.
+// Design.  One thread block of 8 warps per (image, 8x16 tile of the
+// H/4 x W/4 output grid), two blocks an SM.  The block recomputes in shared
+// memory the halo each later layer needs, so no intermediate activation
+// goes to device memory (what the TPU kernel keeps in VMEM):
+//   z     space-to-depth input  23 x 39  (ZH x ZW)   28.0 KB
+//   stem                        21 x 37  (SH x SW)   52.3 KB (parity planes)
+//   down                        10 x 18  (DH x DW)   22.5 KB
+//   a = cv1|cv2, bb = m.cv1     10 x 18              22.5 + 11.3 KB
+//   m.cv2, cv3                   8 x 16  (TH x TW)   in place / to the output
+// Halo arithmetic per tile: the stem computes 777 positions for 512 useful
+// ones (1.52x), the down conv and the C3's 1x1s 180 for 128 (1.41x); with M
+// padded to whole m16 tiles and the stem's K to 16 channels a tap, a block
+// issues 4,804 mma.m16n8k16 (stem 1,764, down 1,728, cv1|cv2 384, m.cv1
+// 96, m.cv2 576, cv3 256): 9.84 M multiply-adds for 6.48 M exact ones.
+// The tile is the largest that every H % 32 == 0, W % 64 == 0 takes, and
+// a 16x16 one would need 141 KB, one block an SM.  A block that walked
+// down a column band, keeping the last rows of each layer, would drop the
+// vertical halo: doing only that work takes 0.325 against 0.365 ms
+// (lpr_tpu_torch/tools/front_variants.py `no_vertical_halo`), an 11 %
+// ceiling before its row copies and band starts, so the tile stays.
+//
+// Every convolution is an implicit GEMM on the tensor cores (conv_mma):
+// M = the layer's tile positions (padded to 16 with clamped rows, which
+// repeat the last position), N = output channels, K = taps x 16-channel
+// chunks; mma.sync m16n8k16 bf16 in, float32 accumulators that start from
+// the bias.  Tiles live in shared memory as bf16 in csrc/mma_conv.cuh's layout:
+// 16 channels of a position in one 32-byte row, the 16-byte halves
+// XOR-swizzled, one plane of rows per 16-channel chunk; every lane
+// addresses its own ldmatrix row, so a tap of any conv is a shift of row
+// indices and needs no gather.  The stride-2 down conv would read rows two
+// apart, which the swizzle puts two to a bank group; so the stem tile is
+// stored as four row/column parity planes (the TPU kernel's own layout
+// idea), in which a stride-2 tap reads consecutive rows of one plane and
+// ldmatrix stays conflict-free.  The weights are bf16 B fragments in
+// fragment order (front_pack): a lane reads its b0/b1 words for two n-tiles
+// as one 16-byte __ldg, from L1/L2, which every block shares.  Staged in
+// shared memory (83 KB more, so one block an SM) they made K1 0.466
+// against 0.365 ms (tools/front_variants.py `weights_in_smem`).
+//
+// The epilogue rounds where the scalar kernel and the TPU kernel round:
+// SiLU in float32 with the flush, zero outside the layer's domain (which
+// is the zero padding the next conv reads), one bf16 store; the m.cv2
+// residual as one bf16 sum onto cv1; cv3 straight to the output.  At
+// ~66 k SiLUs a block the epilogue weighs as much as the MMAs, so SiLU
+// runs on the SFU's approximations (silu_flush) and the epilogue has no
+// branch (conv_mma, silu2): 0.592 ms without either, 0.365 with both.
+//
+// Input staging: the frame rows of the tile arrive with 16-byte cp.async
+// (the zero-fill form outside the frame) and are rearranged into z, whose
+// 16 channels per position are the 12 bytes of frame row 2y (pixels 2x,
+// 2x+1), the 12 of row 2y+1, and 4 zeros: kernel channel i*6 + j*3 + c
+// holds space-to-depth channel c*4 + i*2 + j, and front_pack orders the
+// stem's B rows to match (values move, none is rounded).
 //
 // Stage variants (the port of tools/probe_front_stages.py `make_variant`,
 // which shows where K1's time goes): the stage is a template parameter of
@@ -39,20 +81,16 @@
 //         p = 2*rho + pi and k < 12; channels p*16 + 12..15 are zero.
 //   STEM  out(y, x, 0..31) = stem(2y, 2x), out(y, x, 32..63) = stem(2y, 2x+1).
 //   DOWN  out(y, x, :) = down(y, x).
-//
-// Neighbouring threads compute neighbouring positions, so the channel run
-// of each position in shared memory is padded by one 4-byte word: its
-// stride in words is odd and a warp's loads of one channel pair hit 32
-// different banks (unpadded, 32- or 64-channel runs put a whole warp on
-// one bank).  Each thread computes PX positions x G output channels, so
-// every weight load feeds PX x 2 FMAs.  Three blocks fit on an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_conv.cuh"
+
 namespace {
 
+using namespace mma_conv;
 typedef __nv_bfloat16 bf16;
 
 constexpr int TH = 8;           // output tile rows (H/4 grid)
@@ -63,135 +101,165 @@ constexpr int SH = 2 * DH + 1;  // stem tile read by the down tile's 3x3/s2
 constexpr int SW = 2 * DW + 1;
 constexpr int ZH = SH + 2;      // space-to-depth tile read by the stem's 3x3
 constexpr int ZW = SW + 2;
-constexpr int C0 = 12, C1 = 32, C2 = 64, CM = 32;
+constexpr int PH = (SH + 1) / 2;  // a stem parity plane: 11 x 19 positions
+constexpr int PW = (SW + 1) / 2;
 constexpr int NTHREADS = 256;
-constexpr int G = 8;            // output channels per thread work item
-constexpr int PX = 2;           // positions per thread work item
-// Channel strides in shared memory (elements): padded by 2 bf16 so that the
-// stride in 4-byte words is odd.  The s2d tile stays unpadded (6 words).
-constexpr int CS1 = C1 + 2, CS2 = C2 + 2, CSM = CM + 2;
+constexpr int NWARPS = NTHREADS / 32;
 
-// Region A holds the s2d input tile, later the down tile; region B holds the
-// stem tile, later the C3 tensors a (= cv1 | cv2) and bb (= m.cv1).
-constexpr int A_ELEMS = (ZH * ZW * C0 > DH * DW * CS2) ? ZH * ZW * C0
-                                                       : DH * DW * CS2;
-constexpr int B_ELEMS = SH * SW * CS1;
-static_assert(DH * DW * (CS2 + CSM) <= B_ELEMS, "a and bb must fit region B");
-static_assert((A_ELEMS * 2) % 16 == 0, "region B must stay 16-byte aligned");
-constexpr int SMEM_BYTES = (A_ELEMS + B_ELEMS) * 2;
+// Positions (32-byte rows) of one 16-channel chunk plane of each tile.
+constexpr int ZP = ZH * ZW;          // 897
+constexpr int SP = 4 * PH * PW;      // 836: stem, parity planes 2*rho + pi
+constexpr int DP = DH * DW;          // 180
+constexpr int OP = TH * TW;          // 128
 
+// Frame rows [4*r0 - 8, +2*ZH), pixels [4*c0 - 8, +2*ZW): 468 bytes a row,
+// staged as 30 16-byte chunks (the offset 24*c0 - 48 is 16-byte aligned and
+// W*6 a multiple of 16, so a chunk lies wholly inside or outside the row).
+constexpr int FR_ROWS = 2 * ZH;
+constexpr int FR_CHUNKS = (2 * ZW * 3 * 2 + 15) / 16;
+constexpr int FR_STRIDE = FR_CHUNKS * 16;
+
+// Region A holds z, later the down tile; region B the staged frame rows,
+// then the stem planes, then a (4 chunks) and bb (2 chunks).
+constexpr int Z_BYTES = ZP * 32;
+constexpr int D_BYTES = 4 * DP * 32;
+constexpr int REGION_A = Z_BYTES > D_BYTES ? Z_BYTES : D_BYTES;
+constexpr int REGION_B = 2 * SP * 32;
+static_assert(FR_ROWS * FR_STRIDE <= REGION_B, "frame rows fit region B");
+static_assert(6 * DP * 32 <= REGION_B, "a and bb fit region B");
+static_assert(REGION_A % 16 == 0, "region B stays 16-byte aligned");
+constexpr int SMEM_BYTES = REGION_A + REGION_B;
+
+// The B fragments of each layer (front_pack's order: k-step, n-tile pair,
+// lane, 16 bytes), in uint4 units, and the biases, in floats.
+constexpr int frag_len(int ksteps, int n) { return ksteps * (n / 16) * 32; }
+constexpr int F_STEM = 0;
+constexpr int F_DOWN = F_STEM + frag_len(9, 32);
+constexpr int F_C12 = F_DOWN + frag_len(18, 64);
+constexpr int F_M1 = F_C12 + frag_len(4, 64);
+constexpr int F_M2 = F_M1 + frag_len(2, 32);
+constexpr int F_C3 = F_M2 + frag_len(18, 32);
+constexpr int F_END = F_C3 + frag_len(4, 64);
+constexpr int B_STEM = 0, B_DOWN = 32, B_C12 = 96, B_M1 = 160, B_M2 = 192,
+              B_C3 = 224, B_END = 288;
+
+// SiLU with the flush, through the SFU's approximate exp2 and reciprocal
+// (ex2.approx.ftz, rcp.approx.ftz; subnormals flush, as the flush below
+// does anyway): a few float32 ulps from the IEEE quotient, so the bf16
+// rounding of a result flips now and then, as a sum taken in another order
+// does.  IEEE expf and division make K1 1.51x slower (0.550 against 0.365
+// ms at (8, 736, 1280, 3); tools/front_variants.py) for
+// 1.4 % fewer outputs that differ from front_plain by an ulp (69,434
+// against 70,386 of 7.5 M at (2, 736, 1280, 3), the largest error the
+// same).  For v < -88, 1 + exp(-v) is inf and its reciprocal 0.
 __device__ __forceinline__ float silu_flush(float v) {
-  const float y = v / (1.0f + expf(-v));
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + e));
+  const float y = v * r;
   return fabsf(y) < 1e-30f ? 0.0f : y;
 }
 
-union Pack8 {
-  uint4 u;
-  __nv_bfloat162 h[4];
-};
-
-// SiLU of 8 accumulators (or zeros outside the domain) as 8 bf16, packed.
-__device__ __forceinline__ uint4 silu8(const float* acc, bool in_domain) {
-  Pack8 p;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float lo = in_domain ? silu_flush(acc[2 * k]) : 0.0f;
-    const float hi = in_domain ? silu_flush(acc[2 * k + 1]) : 0.0f;
-    p.h[k] = __floats2bfloat162_rn(lo, hi);
-  }
-  return p.u;
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Into shared memory: four 4-byte stores (padded runs are 4-byte aligned).
-__device__ __forceinline__ void store8_shared(bf16* dst, const float* acc,
-                                              bool in_domain) {
-  const uint4 v = silu8(acc, in_domain);
-  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-  d[0] = v.x;
-  d[1] = v.y;
-  d[2] = v.z;
-  d[3] = v.w;
+// SiLU of a channel pair (or zeros outside the domain) as two bf16,
+// computed either way and selected, so that no branch splits the warp.
+__device__ __forceinline__ uint32_t silu2(float a, float b, bool in_domain) {
+  const uint32_t v = pack2(silu_flush(a), silu_flush(b));
+  return in_domain ? v : 0u;
 }
 
-// One conv layer from a shared-memory tile: output (OH, OW, COUT) of a
-// KxK/stride-S conv over the input tile `in` (element (y, x, c) at
-// in[(y * IN_W + x) * IN_CS + c]), whose origin is placed so that output
-// (oy, ox) reads input rows oy*S .. oy*S+K-1.  Weights are HWIO fp32
-// (w[((ky*K + kx)*CIN + ci)*COUT + co]).  A work item is G consecutive
-// output channels at PX positions NPG apart (so neighbouring threads take
-// neighbouring positions); the epilogue gets each position's fp32 sums,
-// bias included.
-template <int K, int S, int CIN, int COUT, int OH, int OW, int IN_W,
-          int IN_CS, class Epi>
-__device__ __forceinline__ void conv_stage(const bf16* __restrict__ in,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ bias,
-                                           Epi epi) {
-  static_assert(CIN % 2 == 0 && IN_CS % 2 == 0, "channel pairs");
-  constexpr int NPOS = OH * OW;
-  constexpr int NPG = (NPOS + PX - 1) / PX;
-  constexpr int NITEMS = NPG * (COUT / G);
-  for (int item = threadIdx.x; item < NITEMS; item += NTHREADS) {
-    const int g = item / NPG;
-    const int pg = item - g * NPG;
-    int oy[PX], ox[PX];
-    const bf16* ip[PX];
+// Byte offset of channels (co, co+1) of row pos in a tile of np rows a
+// chunk plane.
+__device__ __forceinline__ int pair_off(int np, int pos, int co) {
+  return swz((co >> 4) * np + pos, (co >> 3) & 1) + (co & 7) * 2;
+}
+
+// One convolution as an implicit GEMM: NPOS output positions x N output
+// channels, K = KS k-steps of 16 input channels.  Lane-row r of m-tile t
+// is position p = min(16t + r, NPOS - 1); its A row at k-step s is row
+// row(p) + koff(s) of the tile at shared address `in` (koff folds the tap's
+// shift and the input chunk's plane).  A warp's unit of work is MT m-tiles
+// x NTW n-tiles, units dealt round-robin to the 8 warps.  The epilogue gets
+// each position's fp32 sums, bias included, a channel pair at a time:
+// epi(p, co, v[co], v[co + 1]).  A padding row is clamped there too, so it
+// writes row NPOS - 1's values again, which keeps the epilogue free of
+// branches; an epilogue that reads what it writes needs NPOS % 16 == 0.
+template <int NPOS, int N, int KS, int MT, int NTW, class Row, class Koff,
+          class Epi>
+__device__ __forceinline__ void conv_mma(uint32_t in,
+                                         const uint4* __restrict__ wf,
+                                         const float* __restrict__ bias,
+                                         Row row, Koff koff, Epi epi) {
+  constexpr int NT = N / 8;
+  constexpr int NMT = (NPOS + 15) / 16;
+  constexpr int NMG = (NMT + MT - 1) / MT;
+  constexpr int NNG = NT / NTW;
+  static_assert(NT % NTW == 0 && NTW % 2 == 0, "n-tiles in pairs");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int u = warp; u < NMG * NNG; u += NWARPS) {
+    const int mg = u / NNG, ng = u - mg * NNG;
+    int qa[MT];
 #pragma unroll
-    for (int j = 0; j < PX; ++j) {
-      const int pos = min(pg + j * NPG, NPOS - 1);
-      oy[j] = pos / OW;
-      ox[j] = pos - oy[j] * OW;
-      ip[j] = in + (oy[j] * S * IN_W + ox[j] * S) * IN_CS;
-    }
-    const float4* bp = reinterpret_cast<const float4*>(bias + g * G);
-    const float4 b0 = __ldg(bp), b1 = __ldg(bp + 1);
-    float acc[PX][G];
+    for (int i = 0; i < MT; ++i)
+      qa[i] = row(min((mg * MT + i) * 16 + (lane & 15), NPOS - 1));
+    float acc[MT][NTW][4];
 #pragma unroll
-    for (int j = 0; j < PX; ++j) {
-      acc[j][0] = b0.x; acc[j][1] = b0.y; acc[j][2] = b0.z; acc[j][3] = b0.w;
-      acc[j][4] = b1.x; acc[j][5] = b1.y; acc[j][6] = b1.z; acc[j][7] = b1.w;
-    }
+    for (int j = 0; j < NTW; ++j) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(
+          bias + (ng * NTW + j) * 8 + 2 * (lane & 3)));
 #pragma unroll
-    for (int ky = 0; ky < K; ++ky) {
-#pragma unroll
-      for (int kx = 0; kx < K; ++kx) {
-        const int tap = (ky * IN_W + kx) * IN_CS;
-        const float* wp = w + (ky * K + kx) * CIN * COUT + g * G;
-#pragma unroll 2
-        for (int ci = 0; ci < CIN; ci += 2) {
-          const float4* w4 = reinterpret_cast<const float4*>(wp + ci * COUT);
-          const float4 wa = __ldg(w4), wb = __ldg(w4 + 1);
-          const float4 wc = __ldg(w4 + COUT / 4), wd = __ldg(w4 + COUT / 4 + 1);
-#pragma unroll
-          for (int j = 0; j < PX; ++j) {
-            const float2 v = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(ip[j] + tap + ci));
-            float* a = acc[j];
-            a[0] = fmaf(v.x, wa.x, a[0]); a[1] = fmaf(v.x, wa.y, a[1]);
-            a[2] = fmaf(v.x, wa.z, a[2]); a[3] = fmaf(v.x, wa.w, a[3]);
-            a[4] = fmaf(v.x, wb.x, a[4]); a[5] = fmaf(v.x, wb.y, a[5]);
-            a[6] = fmaf(v.x, wb.z, a[6]); a[7] = fmaf(v.x, wb.w, a[7]);
-            a[0] = fmaf(v.y, wc.x, a[0]); a[1] = fmaf(v.y, wc.y, a[1]);
-            a[2] = fmaf(v.y, wc.z, a[2]); a[3] = fmaf(v.y, wc.w, a[3]);
-            a[4] = fmaf(v.y, wd.x, a[4]); a[5] = fmaf(v.y, wd.y, a[5]);
-            a[6] = fmaf(v.y, wd.z, a[6]); a[7] = fmaf(v.y, wd.w, a[7]);
-          }
-        }
+      for (int i = 0; i < MT; ++i) {
+        acc[i][j][0] = b.x;
+        acc[i][j][1] = b.y;
+        acc[i][j][2] = b.x;
+        acc[i][j][3] = b.y;
       }
     }
 #pragma unroll
-    for (int j = 0; j < PX; ++j)
-      if (pg + j * NPG < NPOS) epi(oy[j], ox[j], g * G, acc[j]);
+    for (int s = 0; s < KS; ++s) {
+      uint32_t b[NTW][2];
+#pragma unroll
+      for (int jp = 0; jp < NTW / 2; ++jp) {
+        const uint4 v =
+            __ldg(wf + (s * (NT / 2) + ng * (NTW / 2) + jp) * 32 + lane);
+        b[2 * jp][0] = v.x;
+        b[2 * jp][1] = v.y;
+        b[2 * jp + 1][0] = v.z;
+        b[2 * jp + 1][1] = v.w;
+      }
+      const int off = koff(s);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t a[4];
+        ldmatrix_x4(a, in + swz(qa[i] + off, lane >> 4));
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p =
+            min((mg * MT + i) * 16 + (lane >> 2) + 8 * h, NPOS - 1);
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          epi(p, (ng * NTW + j) * 8 + 2 * (lane & 3), acc[i][j][2 * h],
+              acc[i][j][2 * h + 1]);
+      }
   }
 }
 
 enum Stage : int { DMA = 0, STEM = 1, DOWN = 2, FULL = 3 };
 
-// 8 bf16 from shared memory at a 4-byte aligned address.
-__device__ __forceinline__ uint4 load8_shared(const bf16* src) {
-  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-  return make_uint4(s[0], s[1], s[2], s[3]);
-}
+union Pack8 {
+  uint4 u;
+  bf16 h[8];
+};
 
 // The block's 8x16 output tile, written as 16-byte chunks: chunk q of
 // position (oy, ox) holds channels 8q .. 8q+7 and is chunk(oy, ox, q).
@@ -200,182 +268,223 @@ template <class Chunk>
 __device__ __forceinline__ void store_tile(bf16* __restrict__ out, int img,
                                            int r0, int c0, int H4, int W4,
                                            Chunk chunk) {
-  for (int e = threadIdx.x; e < TH * TW * (C2 / 8); e += NTHREADS) {
-    const int pos = e / (C2 / 8), q = e - pos * (C2 / 8);
+  for (int e = threadIdx.x; e < OP * 8; e += NTHREADS) {
+    const int pos = e >> 3, q = e & 7;
     const int oy = pos / TW, ox = pos - oy * TW;
     *reinterpret_cast<uint4*>(
-        out + (((size_t)img * H4 + r0 + oy) * W4 + c0 + ox) * C2 + q * 8) =
+        out + (((size_t)img * H4 + r0 + oy) * W4 + c0 + ox) * 64 + q * 8) =
         chunk(oy, ox, q);
   }
 }
 
 template <int STAGE>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 2)
 front_kernel(const bf16* __restrict__ x, int H, int W,
-             const float* __restrict__ w0, const float* __restrict__ b0,
-             const float* __restrict__ w1, const float* __restrict__ b1,
-             const float* __restrict__ w12, const float* __restrict__ b12,
-             const float* __restrict__ wm1, const float* __restrict__ bm1,
-             const float* __restrict__ wm2, const float* __restrict__ bm2,
-             const float* __restrict__ w3, const float* __restrict__ b3,
+             const uint4* __restrict__ wf, const float* __restrict__ bias,
              bf16* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* region_a = reinterpret_cast<bf16*>(smem);
-  bf16* region_b = region_a + A_ELEMS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* const ra = smem;             // z, then the down tile d
+  unsigned char* const rb = smem + REGION_A;  // frame rows, stem, a | bb
+  const uint32_t sa = smem_u32(ra), sb = smem_u32(rb);
   const int img = blockIdx.z;
   const int r0 = blockIdx.y * TH;  // tile origin on the (H/4, W/4) grid
   const int c0 = blockIdx.x * TW;
   const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
 
-  // 1. Space-to-depth input tile z, rows [2*r0-4, +ZH), cols [2*c0-4, +ZW):
-  //    z[y][x][c*4 + i*2 + j] = frame[2y+i][2x+j][c], zero outside the frame
-  //    (the stem's zero padding).  Threads walk the frame rows of the tile,
-  //    so neighbouring threads read neighbouring addresses.
+  // 1. Space-to-depth input tile z, rows [2*r0-4, +ZH), cols [2*c0-4, +ZW).
+  //    The frame rows arrive in region B with 16-byte cp.async (zeros
+  //    outside the frame: the stem's padding), then each thread builds the
+  //    32-byte rows of its positions from two 12-byte runs.
   {
-    bf16* z = region_a;
-    const int iy0 = 4 * r0 - 8, ix0 = 4 * c0 - 8;
-    const bf16* frame = x + (size_t)img * H * W * 3;
-    constexpr int ROW = 2 * ZW * 3;
-    const bf16 zero = __float2bfloat16(0.0f);
-    for (int e = threadIdx.x; e < 2 * ZH * ROW; e += NTHREADS) {
-      const int ry = e / ROW;
-      const int rem = e - ry * ROW;
-      const int rx = rem / 3;
-      const int c = rem - rx * 3;
-      const int gy = iy0 + ry, gx = ix0 + rx;
-      bf16 v = zero;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = frame[((size_t)gy * W + gx) * 3 + c];
-      z[((ry >> 1) * ZW + (rx >> 1)) * C0 + c * 4 + (ry & 1) * 2 + (rx & 1)] =
-          v;
+    const unsigned char* frame =
+        reinterpret_cast<const unsigned char*>(x) + (size_t)img * H * W * 6;
+    const int fy0 = 4 * r0 - 8, bx0 = (4 * c0 - 8) * 6, row_bytes = W * 6;
+    for (int e = threadIdx.x; e < FR_ROWS * FR_CHUNKS; e += NTHREADS) {
+      const int fr = e / FR_CHUNKS, k = e - fr * FR_CHUNKS;
+      const int gy = fy0 + fr, bx = bx0 + 16 * k;
+      const bool valid = gy >= 0 && gy < H && bx >= 0 && bx + 16 <= row_bytes;
+      cp_async16(sb + fr * FR_STRIDE + 16 * k,
+                 valid ? frame + (size_t)gy * row_bytes + bx : frame, valid);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int q = threadIdx.x; q < ZP; q += NTHREADS) {
+      const int zy = q / ZW, zx = q - zy * ZW;
+      const uint32_t* f0 = reinterpret_cast<const uint32_t*>(
+          rb + 2 * zy * FR_STRIDE + 12 * zx);
+      const uint32_t* f1 = f0 + FR_STRIDE / 4;
+      *reinterpret_cast<uint4*>(ra + swz(q, 0)) =
+          make_uint4(f0[0], f0[1], f0[2], f1[0]);
+      *reinterpret_cast<uint4*>(ra + swz(q, 1)) =
+          make_uint4(f1[1], f1[2], 0u, 0u);
     }
   }
   __syncthreads();
   if constexpr (STAGE == DMA) {
-    // plane p = 2*rho + pi of position (oy, ox) is s2d position
-    // (2*oy + rho, 2*ox + pi) of the tile origin (-4, -4): 12 channels
-    // (chunk 2p: 0-7, chunk 2p+1: 8-11 and four zeros).
-    const bf16* z = region_a;
+    // plane p = 2*rho + pi of position (oy, ox) is z position
+    // (2*oy + rho + 4, 2*ox + pi + 4); s2d channel k = c*4 + i*2 + j sits
+    // in kernel channel i*6 + j*3 + c.
     store_tile(out, img, r0, c0, H4, W4, [&](int oy, int ox, int q) {
       const int p = q >> 1;
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(
-          z + ((2 * oy + (p >> 1) + 4) * ZW + 2 * ox + (p & 1) + 4) * C0);
-      return (q & 1) ? make_uint4(src[4], src[5], 0u, 0u)
-                     : make_uint4(src[0], src[1], src[2], src[3]);
+      const int zq = (2 * oy + (p >> 1) + 4) * ZW + 2 * ox + (p & 1) + 4;
+      Pack8 v;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = (q & 1) * 8 + e;
+        const int kc = ((k >> 1) & 1) * 6 + (k & 1) * 3 + (k >> 2);
+        v.h[e] = k < 12 ? *reinterpret_cast<const bf16*>(
+                              ra + swz(zq, kc >> 3) + (kc & 7) * 2)
+                        : __float2bfloat16(0.0f);
+      }
+      return v.u;
     });
     return;
   }
 
-  // 2. Stem, rows [2*r0-3, +SH), cols [2*c0-3, +SW) of the (H/2, W/2) grid.
+  // 2. Stem, rows [2*r0-3, +SH), cols [2*c0-3, +SW) of the (H/2, W/2) grid,
+  //    over z in natural order; stored as parity planes: stem position
+  //    (sy, sx) is row ((2*(sy&1) + (sx&1))*PH + sy/2)*PW + sx/2.
   {
     const int sy0 = 2 * r0 - 3, sx0 = 2 * c0 - 3;
-    bf16* s = region_b;
-    conv_stage<3, 1, C0, C1, SH, SW, ZW, C0>(
-        region_a, w0, b0, [&](int oy, int ox, int co, const float* acc) {
-          const int gy = sy0 + oy, gx = sx0 + ox;
-          store8_shared(s + (oy * SW + ox) * CS1 + co, acc,
-                        gy >= 0 && gy < H2 && gx >= 0 && gx < W2);
+    conv_mma<SH * SW, 32, 9, 2, 4>(
+        sa, wf + F_STEM, bias + B_STEM,
+        [](int p) {
+          const int sy = p / SW;
+          return sy * ZW + (p - sy * SW);
+        },
+        [](int s) { return (s / 3) * ZW + s % 3; },
+        [&](int p, int co, float v0, float v1) {
+          const int sy = p / SW, sx = p - sy * SW;
+          const bool in = (unsigned)(sy0 + sy) < (unsigned)H2 &&
+                          (unsigned)(sx0 + sx) < (unsigned)W2;
+          const int pos =
+              ((2 * (sy & 1) + (sx & 1)) * PH + (sy >> 1)) * PW + (sx >> 1);
+          *reinterpret_cast<uint32_t*>(rb + pair_off(SP, pos, co)) =
+              silu2(v0, v1, in);
         });
   }
   __syncthreads();
   if constexpr (STAGE == STEM) {
     // stem rows 2*(r0+oy) and cols 2*(c0+ox) + half of the tile origin
-    // (2*r0-3, 2*c0-3); chunks 0-3 the even column, 4-7 the odd one.
-    const bf16* s = region_b;
+    // (2*r0-3, 2*c0-3): local (2*oy+3, 2*ox+3+half), odd row plane; chunks
+    // 0-3 the even column (odd plane, x/2 = ox+1), 4-7 the odd one (even
+    // plane, x/2 = ox+2).
     store_tile(out, img, r0, c0, H4, W4, [&](int oy, int ox, int q) {
-      return load8_shared(
-          s + ((2 * oy + 3) * SW + 2 * ox + 3 + (q >> 2)) * CS1 + (q & 3) * 8);
+      const int half = q >> 2, c = q & 3;
+      const int pos = ((2 + 1 - half) * PH + oy + 1) * PW + ox + 1 + half;
+      return *reinterpret_cast<const uint4*>(
+          rb + swz((c >> 1) * SP + pos, c & 1));
     });
     return;
   }
 
-  // 3. Down, rows [r0-1, +DH), cols [c0-1, +DW) of the (H/4, W/4) grid.
+  // 3. Down, rows [r0-1, +DH), cols [c0-1, +DW) of the (H/4, W/4) grid;
+  //    tap (ky, kx) of position (oy, ox) reads stem (2*oy+ky, 2*ox+kx):
+  //    plane (ky&1, kx&1), row oy + ky/2, col ox + kx/2.  k-step 2*tap + c.
   const int dy0 = r0 - 1, dx0 = c0 - 1;
-  auto in_c3_domain = [&](int oy, int ox) {
-    const int gy = dy0 + oy, gx = dx0 + ox;
-    return gy >= 0 && gy < H4 && gx >= 0 && gx < W4;
+  auto in_c3_domain = [&](int p) {
+    const int oy = p / DW, ox = p - oy * DW;
+    return (unsigned)(dy0 + oy) < (unsigned)H4 &&
+           (unsigned)(dx0 + ox) < (unsigned)W4;
   };
-  bf16* d = region_a;
-  conv_stage<3, 2, C1, C2, DH, DW, SW, CS1>(
-      region_b, w1, b1, [&](int oy, int ox, int co, const float* acc) {
-        store8_shared(d + (oy * DW + ox) * CS2 + co, acc,
-                      in_c3_domain(oy, ox));
+  conv_mma<DP, 64, 18, 3, 4>(
+      sb, wf + F_DOWN, bias + B_DOWN,
+      [](int p) {
+        const int oy = p / DW;
+        return oy * PW + (p - oy * DW);
+      },
+      [](int s) {
+        const int t = s >> 1, ky = t / 3, kx = t % 3;
+        return (s & 1) * SP + (2 * (ky & 1) + (kx & 1)) * PH * PW +
+               (ky >> 1) * PW + (kx >> 1);
+      },
+      [&](int p, int co, float v0, float v1) {
+        *reinterpret_cast<uint32_t*>(ra + pair_off(DP, p, co)) =
+            silu2(v0, v1, in_c3_domain(p));
       });
   __syncthreads();
   if constexpr (STAGE == DOWN) {
     // the interior of the down tile, origin (r0-1, c0-1)
     store_tile(out, img, r0, c0, H4, W4, [&](int oy, int ox, int q) {
-      return load8_shared(d + ((oy + 1) * DW + ox + 1) * CS2 + q * 8);
+      return *reinterpret_cast<const uint4*>(
+          ra + swz((q >> 1) * DP + (oy + 1) * DW + ox + 1, q & 1));
     });
     return;
   }
 
   // 4. C3 cv1 | cv2 as one 64->64 1x1 over the haloed down tile -> a.
-  bf16* a = region_b;
-  bf16* bb = region_b + DH * DW * CS2;
-  conv_stage<1, 1, C2, C2, DH, DW, DW, CS2>(
-      d, w12, b12, [&](int oy, int ox, int co, const float* acc) {
-        store8_shared(a + (oy * DW + ox) * CS2 + co, acc,
-                      in_c3_domain(oy, ox));
+  unsigned char* const a = rb;
+  unsigned char* const bb = rb + 4 * DP * 32;
+  conv_mma<DP, 64, 4, 3, 4>(
+      sa, wf + F_C12, bias + B_C12, [](int p) { return p; },
+      [](int s) { return s * DP; },
+      [&](int p, int co, float v0, float v1) {
+        *reinterpret_cast<uint32_t*>(a + pair_off(DP, p, co)) =
+            silu2(v0, v1, in_c3_domain(p));
       });
   __syncthreads();
 
-  // 5. m.cv1 1x1 on the cv1 half of a -> bb (zero outside the domain: the
-  //    padding of m.cv2).
-  conv_stage<1, 1, CM, CM, DH, DW, DW, CS2>(
-      a, wm1, bm1, [&](int oy, int ox, int co, const float* acc) {
-        store8_shared(bb + (oy * DW + ox) * CSM + co, acc,
-                      in_c3_domain(oy, ox));
+  // 5. m.cv1 1x1 on the cv1 half of a (chunks 0-1) -> bb (zero outside the
+  //    domain: the padding of m.cv2).
+  conv_mma<DP, 32, 2, 3, 2>(
+      sb, wf + F_M1, bias + B_M1, [](int p) { return p; },
+      [](int s) { return s * DP; },
+      [&](int p, int co, float v0, float v1) {
+        *reinterpret_cast<uint32_t*>(bb + pair_off(DP, p, co)) =
+            silu2(v0, v1, in_c3_domain(p));
       });
   __syncthreads();
 
-  // 6. m.cv2 3x3/p1 on bb over the interior, plus the shortcut: the bf16 sum
+  // 6. m.cv2 3x3/p1 on bb over the interior (every interior position of a
+  //    whole tile is in the domain), plus the shortcut: the bf16 sum
   //    m = bf16(silu) + cv1 replaces the cv1 half of a in place (each
-  //    position and channel belongs to one thread, and no thread reads a
+  //    position and channel pair belongs to one lane, and nothing reads a
   //    here otherwise), so a's interior becomes cv3's input [m | cv2].
-  conv_stage<3, 1, CM, CM, TH, TW, DW, CSM>(
-      bb, wm2, bm2, [&](int oy, int ox, int co, const float* acc) {
+  static_assert(OP % 16 == 0, "no padding row adds the shortcut twice");
+  conv_mma<OP, 32, 18, 1, 4>(
+      smem_u32(bb), wf + F_M2, bias + B_M2,
+      [](int p) { return (p >> 4) * DW + (p & 15); },
+      [](int s) {
+        const int t = s >> 1;
+        return (s & 1) * DP + (t / 3) * DW + t % 3;
+      },
+      [&](int p, int co, float v0, float v1) {
         __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-            a + ((oy + 1) * DW + (ox + 1)) * CS2 + co);
-        Pack8 c;
-        c.u = silu8(acc, in_c3_domain(oy + 1, ox + 1));
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 r = __bfloat1622float2(dst[k]);
-          const float2 v = __bfloat1622float2(c.h[k]);
-          dst[k] = __floats2bfloat162_rn(v.x + r.x, v.y + r.y);
-        }
+            a + pair_off(DP, ((p >> 4) + 1) * DW + (p & 15) + 1, co));
+        const float2 r = __bfloat1622float2(*dst);
+        const float2 m = __bfloat1622float2(
+            __floats2bfloat162_rn(silu_flush(v0), silu_flush(v1)));
+        *dst = __floats2bfloat162_rn(m.x + r.x, m.y + r.y);
       });
   __syncthreads();
 
   // 7. cv3 1x1 64->64 on the interior of a -> the output tile.
-  conv_stage<1, 1, C2, C2, TH, TW, DW, CS2>(
-      a + (DW + 1) * CS2, w3, b3,
-      [&](int oy, int ox, int co, const float* acc) {
-        const int gy = r0 + oy, gx = c0 + ox;
-        *reinterpret_cast<uint4*>(
-            out + (((size_t)img * H4 + gy) * W4 + gx) * C2 + co) =
-            silu8(acc, true);
+  bf16* const o = out + ((size_t)img * H4 + r0) * W4 * 64 + (size_t)c0 * 64;
+  conv_mma<OP, 64, 4, 1, 8>(
+      sb, wf + F_C3, bias + B_C3,
+      [](int p) { return ((p >> 4) + 1) * DW + (p & 15) + 1; },
+      [](int s) { return s * DP; },
+      [&](int p, int co, float v0, float v1) {
+        *reinterpret_cast<uint32_t*>(
+            o + ((size_t)(p >> 4) * W4 + (p & 15)) * 64 + co) =
+            pack2(silu_flush(v0), silu_flush(v1));
       });
 }
 
 // One instance per stage, indexed by Stage.
-typedef void (*FrontKernel)(const bf16*, int, int, const float*, const float*,
-                            const float*, const float*, const float*,
-                            const float*, const float*, const float*,
-                            const float*, const float*, const float*,
+typedef void (*FrontKernel)(const bf16*, int, int, const uint4*,
                             const float*, bf16*);
 constexpr FrontKernel kFrontKernels[] = {front_kernel<DMA>, front_kernel<STEM>,
                                          front_kernel<DOWN>, front_kernel<FULL>};
 
-int launch_front(int stage, const void* x, const void* w0, const void* b0,
-                 const void* w1, const void* b1, const void* w12,
-                 const void* b12, const void* wm1, const void* bm1,
-                 const void* wm2, const void* bm2, const void* w3,
-                 const void* b3, void* out, int batch, int height, int width,
-                 void* stream) {
+int launch_front(int stage, const void* x, const void* wmma,
+                 const void* bias, void* out, int batch, int height,
+                 int width, void* stream) {
   if (stage < DMA || stage > FULL || batch <= 0 || batch > 65535 ||
-      height <= 0 || width <= 0 || height % 32 != 0 || width % 64 != 0)
+      height <= 0 || width <= 0 || height % 32 != 0 || width % 64 != 0 ||
+      reinterpret_cast<uintptr_t>(wmma) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bias) % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const FrontKernel kernel = kFrontKernels[stage];
   cudaError_t err = cudaFuncSetAttribute(
@@ -383,42 +492,37 @@ int launch_front(int stage, const void* x, const void* w0, const void* b0,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(width / 4 / TW, height / 4 / TH, batch);
   kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)x, height, width, (const float*)w0, (const float*)b0,
-      (const float*)w1, (const float*)b1, (const float*)w12,
-      (const float*)b12, (const float*)wm1, (const float*)bm1,
-      (const float*)wm2, (const float*)bm2, (const float*)w3,
-      (const float*)b3, (bf16*)out);
+      (const bf16*)x, height, width, (const uint4*)wmma, (const float*)bias,
+      (bf16*)out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches K1 on `stream` and returns cudaGetLastError() after the launch
-// (0 on success).  Pointers are device pointers: x (B, H, W, 3) bf16; the
-// twelve fp32 weight/bias arrays in the layouts packed by
-// lpr_tpu_torch.kernels.yolo_front.front_pack; out (B, H/4, W/4, 64) bf16.
-extern "C" int lpr_yolo_front_bf16(
-    const void* x, const void* w0, const void* b0, const void* w1,
-    const void* b1, const void* w12, const void* b12, const void* wm1,
-    const void* bm1, const void* wm2, const void* bm2, const void* w3,
-    const void* b3, void* out, int batch, int height, int width,
-    void* stream) {
-  return launch_front(FULL, x, w0, b0, w1, b1, w12, b12, wm1, bm1, wm2, bm2,
-                      w3, b3, out, batch, height, width, stream);
+// (0 on success).  Pointers are device pointers: x (B, H, W, 3) bf16;
+// wmma the six layers' bf16 B fragments and bias their 288 fp32 biases, as
+// lpr_tpu_torch.kernels.yolo_front.front_pack packs them ("mma", "bias");
+// out (B, H/4, W/4, 64) bf16.
+extern "C" int lpr_yolo_front_bf16(const void* x, const void* wmma,
+                                   const void* bias, void* out, int batch,
+                                   int height, int width, void* stream) {
+  return launch_front(FULL, x, wmma, bias, out, batch, height, width, stream);
 }
 
 // Launches the stage variant `stage` (0 dma, 1 stem, 2 down, 3 full = K1)
 // with lpr_yolo_front_bf16's arguments; cudaErrorInvalidValue for another
 // stage.
-extern "C" int lpr_yolo_front_stage_bf16(
-    const void* x, const void* w0, const void* b0, const void* w1,
-    const void* b1, const void* w12, const void* b12, const void* wm1,
-    const void* bm1, const void* wm2, const void* bm2, const void* w3,
-    const void* b3, void* out, int batch, int height, int width, int stage,
-    void* stream) {
-  return launch_front(stage, x, w0, b0, w1, b1, w12, b12, wm1, bm1, wm2, bm2,
-                      w3, b3, out, batch, height, width, stream);
+extern "C" int lpr_yolo_front_stage_bf16(const void* x, const void* wmma,
+                                         const void* bias, void* out,
+                                         int batch, int height, int width,
+                                         int stage, void* stream) {
+  return launch_front(stage, x, wmma, bias, out, batch, height, width,
+                      stream);
 }
 
 // Dynamic shared memory per block, for reports.
 extern "C" int lpr_yolo_front_smem_bytes(void) { return SMEM_BYTES; }
+// Elements of the packed B fragments (bf16) and biases (fp32) it reads.
+extern "C" int lpr_yolo_front_mma_elems(void) { return F_END * 8; }
+extern "C" int lpr_yolo_front_bias_elems(void) { return B_END; }

@@ -5,7 +5,8 @@
   ``front_pack_from_params``): checks the layer pattern and gathers the
   detector's BN-folded weights, the stem in its space-to-depth arrangement
   (:func:`lpr_tpu_torch.ops.nn.s2d_stem_weight`), with cv1 and cv2 joined
-  into one 64->64 1x1.
+  into one 64->64 1x1; and the kernel's operands, each layer's weight as
+  bf16 mma B fragments (:data:`MMA_LAYERS`) and the biases in one buffer.
 - :func:`yolo_front` — the wrapper.  A CUDA tensor goes to the kernel in
   ``lpr_tpu_torch/csrc/yolo_front.cu`` (built with nvcc, loaded with
   ctypes) or raises; only a CPU tensor takes the plain version.
@@ -18,8 +19,9 @@
   the plain chain stopped at the same point.  They show where K1's time
   goes (``lpr_tpu_torch/tools/probe_front_stages.py``).
 
-The TPU kernel's quarter-grid parity planes, lane padding and blocking are
-TPU layout, not part of the function, and are not carried over.
+The TPU kernel's lane padding and blocking are TPU layout, not part of the
+function, and are not carried over; the kernel keeps the stem tile in
+parity planes for its own reasons (``csrc/yolo_front.cu``).
 """
 
 from __future__ import annotations
@@ -46,9 +48,21 @@ TOL_ABS = 0.03
 TOL_REL = 2.0 ** -7
 TOL_INTERIOR_MEAN = 0.004
 
-# Order of the packed tensors in the C launcher's argument list.
-PACK_KEYS = ("w0", "b0", "w1", "b1", "w12", "b12", "wm1", "bm1", "wm2",
-             "bm2", "w3", "b3")
+# The kernel's GEMM operands, in the order of packed["mma"]: per layer its
+# weight key, k-steps (taps x 16-channel input chunks) and output channels.
+# Each weight is a K x N matrix, K = 16 * k-steps running over (tap,
+# chunk, channel), written as bf16 mma.m16n8k16 B fragments
+# (:func:`_b_frags`).  The biases follow BIAS_KEYS in packed["bias"].
+MMA_LAYERS = (("w0", 9, 32), ("w1", 18, 64), ("w12", 4, 64), ("wm1", 2, 32),
+              ("wm2", 18, 32), ("w3", 4, 64))
+BIAS_KEYS = ("b0", "b1", "b12", "bm1", "bm2", "b3")
+MMA_ELEMS = sum(ks * 16 * n for _, ks, n in MMA_LAYERS)     # 41,472
+BIAS_ELEMS = 288
+# The stem's 16 kernel channels a tap: kernel channel i*6 + j*3 + c (the
+# byte order of frame rows 2y + i, pixels 2x + j, channel c) holds
+# space-to-depth channel c*4 + i*2 + j; channels 12-15 are zero.
+STEM_CHANNELS = tuple((k % 3) * 4 + (k // 6) * 2 + (k % 6) // 3
+                      for k in range(12))
 
 # K1's stage variants, in the order of the kernel's enum Stage: the staged
 # space-to-depth input, the stem, the down conv, and all of K1.  Each writes
@@ -72,7 +86,44 @@ def front_geom(h: int, w: int) -> Tuple[int, int]:
     return h // 4, w // 4
 
 
-def front_pack(model) -> Dict[str, Tensor]:
+class FrontPacked(dict):
+    """:func:`front_pack`'s tensors by key, and ``bf16_exact``: whether the
+    bf16 B fragments hold the float32 weights exactly, which the kernel
+    needs."""
+
+    def __init__(self, tensors: Dict[str, Tensor], bf16_exact: bool):
+        super().__init__(tensors)
+        self.bf16_exact = bf16_exact
+
+
+def gemm_matrix(key: str, w: Tensor) -> Tensor:
+    """The K x N matrix that the kernel multiplies for packed weight
+    ``key``: K runs over (tap, 16-channel chunk, channel) of the HWIO (or
+    (cin, cout)) weight; the stem's 12 channels a tap are reordered by
+    :data:`STEM_CHANNELS` and padded with 4 zero rows."""
+    if key == "w0":
+        w = F.pad(w[:, :, list(STEM_CHANNELS), :], (0, 0, 0, 4))
+    return w.reshape(-1, w.shape[-1])
+
+
+def _b_frags(b: Tensor) -> Tensor:
+    """A K x N matrix (K, N multiples of 16) as the kernel reads it, bf16,
+    flat: per k-step s, per n-tile pair, per lane l, 16 bytes = (b0, b1) of
+    n-tile 2*np then of 2*np + 1, where b0 holds B[16s + 2(l%4) + e][8nt +
+    l/4] for e = 0, 1 (low half first) and b1 the same 8 rows down: the
+    mma.m16n8k16 B fragment of lane l."""
+    ks, n = b.shape[0] // 16, b.shape[1]
+    s = torch.arange(ks)[:, None, None, None, None]
+    pair = torch.arange(n // 16)[None, :, None, None, None]
+    lane = torch.arange(32)[None, None, :, None, None]
+    word = torch.arange(4)[None, None, None, :, None]
+    e = torch.arange(2)[None, None, None, None, :]
+    k = 16 * s + 2 * (lane % 4) + 8 * (word % 2) + e
+    col = 8 * (2 * pair + word // 2) + lane // 4
+    return b.to(torch.bfloat16)[k.to(b.device), col.to(b.device)].reshape(-1)
+
+
+def front_pack(model) -> FrontPacked:
     """Packed front weights of a :class:`~lpr_tpu_torch.models.yolo.YoloModel`
     whose layers 0-2 are the yolov5s front (S2D stem Conv 3->32 k6 s2 p2,
     Conv 32->64 k3 s2, C3 64->64 n=1 with shortcut, sequential, layers 0/1
@@ -82,7 +133,10 @@ def front_pack(model) -> Dict[str, Tensor]:
     a bf16 model packs bf16-representable weights): HWIO ``w0`` (3,3,12,32),
     ``w1`` (3,3,32,64), ``wm2`` (3,3,32,32); (cin, cout) ``w12`` (64,64)
     with cv1 in output channels 0-31 and cv2 in 32-63, ``wm1`` (32,32),
-    ``w3`` (64,64); biases (cout,)."""
+    ``w3`` (64,64); biases (cout,).  For the kernel: ``mma``, the six
+    weights' bf16 B fragments in :data:`MMA_LAYERS` order, and ``bias``, the
+    biases in :data:`BIAS_KEYS` order (fp32); ``bf16_exact`` tells whether
+    every weight is representable in bf16 (as a bf16 model's are)."""
     from lpr_tpu_torch.models.yolo import C3, Conv
 
     ls = model.layers
@@ -116,8 +170,14 @@ def front_pack(model) -> Dict[str, Tensor]:
         "wm2": hwio(m.cv2), "bm2": bias(m.cv2),
         "w3": mat(l2.cv3), "b3": bias(l2.cv3),
     }
+    exact = all(torch.equal(packed[k].to(torch.bfloat16).float(), packed[k])
+                for k, _, _ in MMA_LAYERS)
+    packed["mma"] = torch.cat([_b_frags(gemm_matrix(k, packed[k]))
+                               for k, _, _ in MMA_LAYERS])
+    packed["bias"] = torch.cat([packed[k] for k in BIAS_KEYS])
     # own allocations: the kernel reads 16-byte vectors from each base
-    return {k: v.contiguous().clone() for k, v in packed.items()}
+    return FrontPacked({k: v.contiguous().clone() for k, v in packed.items()},
+                       bool(exact))
 
 
 def _chain(x: Tensor, packed: Dict[str, Tensor], stop: str) -> Tensor:
@@ -190,20 +250,32 @@ def front_errors(got: Tensor, ref: Tensor) -> Tuple[float, float, float]:
             err[:, 2:-2, 2:-2].mean().item())
 
 
+def bind(lib: ctypes.CDLL):
+    """(K1's launcher, the stage variants' launcher) of a library built from
+    ``csrc/yolo_front.cu`` (or an edited copy of it), with their argument
+    types; raises if it reads other packed sizes than front_pack's."""
+    lib.lpr_yolo_front_bf16.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 3
+                                        + [ctypes.c_void_p])
+    lib.lpr_yolo_front_stage_bf16.argtypes = ([ctypes.c_void_p] * 4
+                                              + [ctypes.c_int] * 4
+                                              + [ctypes.c_void_p])
+    for fn in (lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16,
+               lib.lpr_yolo_front_mma_elems, lib.lpr_yolo_front_bias_elems):
+        fn.restype = ctypes.c_int
+    sizes = (lib.lpr_yolo_front_mma_elems(), lib.lpr_yolo_front_bias_elems())
+    if sizes != (MMA_ELEMS, BIAS_ELEMS):
+        raise RuntimeError(f"csrc/yolo_front.cu reads {sizes} packed "
+                           f"elements, front_pack packs "
+                           f"{(MMA_ELEMS, BIAS_ELEMS)}")
+    return lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16
+
+
 @functools.cache
 def _launchers():
     from lpr_tpu_torch.kernels._build import library
 
-    lib = library("yolo_front")
-    lib.lpr_yolo_front_bf16.argtypes = ([ctypes.c_void_p] * 14
-                                        + [ctypes.c_int] * 3
-                                        + [ctypes.c_void_p])
-    lib.lpr_yolo_front_stage_bf16.argtypes = ([ctypes.c_void_p] * 14
-                                              + [ctypes.c_int] * 4
-                                              + [ctypes.c_void_p])
-    for fn in (lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16):
-        fn.restype = ctypes.c_int
-    return lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16
+    return bind(library("yolo_front"))
 
 
 def _launch(x: Tensor, packed: Dict[str, Tensor], name: str,
@@ -220,15 +292,21 @@ def _launch(x: Tensor, packed: Dict[str, Tensor], name: str,
         raise ValueError(f"{name} kernel takes a contiguous NHWC tensor")
     B, H, W, _ = x.shape
     h4, w4 = front_geom(H, W)
-    for k in PACK_KEYS:
+    if not getattr(packed, "bf16_exact", False):
+        raise ValueError(f"the {name} kernel multiplies bf16 weights: pack "
+                         f"a bf16 model (front_pack's bf16_exact is not "
+                         f"True)")
+    for k, dt, n in (("mma", torch.bfloat16, MMA_ELEMS),
+                     ("bias", torch.float32, BIAS_ELEMS)):
         t = packed[k]
-        if (t.device != x.device or t.dtype != torch.float32
+        if (t.device != x.device or t.dtype != dt or t.numel() != n
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"packed[{k!r}] must be a contiguous, 16-byte "
-                             f"aligned float32 tensor on {x.device}")
+                             f"aligned {dt} tensor of {n} elements on "
+                             f"{x.device}")
     out = torch.empty((B, h4, w4, 64), dtype=torch.bfloat16, device=x.device)
     k1, variant = _launchers()
-    args = [x.data_ptr(), *[packed[k].data_ptr() for k in PACK_KEYS],
+    args = [x.data_ptr(), packed["mma"].data_ptr(), packed["bias"].data_ptr(),
             out.data_ptr(), B, H, W]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -244,8 +322,9 @@ def yolo_front(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
     (B, H, W, 3) -> (B, H/4, W/4, 64).
 
     A CUDA tensor launches the K1 kernel on the current stream (bf16,
-    contiguous, H % 32 == 0, W % 64 == 0; anything else raises) and adds one
-    to ``yolo_front.launches``; a CPU tensor takes :func:`front_plain`."""
+    contiguous, H % 32 == 0, W % 64 == 0, a pack whose ``bf16_exact`` is
+    True; anything else raises) and adds one to ``yolo_front.launches``; a
+    CPU tensor takes :func:`front_plain`."""
     if x.device.type == "cpu":
         return front_plain(x, packed)
     out = _launch(x, packed, "yolo_front")

@@ -6,11 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lpr_tpu.ops import nn as jnn
 from lpr_tpu.ops.pallas import yolo_front as jfront
 from lpr_tpu_torch.kernels import yolo_front as kf
 from lpr_tpu_torch.models import yolo as tyolo
+from lpr_tpu_torch.ops.nn import silu
 
 from . import torch_ref
 from .torch_ref import PLATE
@@ -114,12 +116,177 @@ def test_front_work_at_the_production_shape():
     assert kf.front_work(8, 736, 1280)[1] - nbytes == 7 * io
 
 
+@pytest.fixture(scope="module")
+def packed_bf16():
+    """The pack of the detector in bf16, whose weights the kernel's bf16
+    fragments hold exactly."""
+    model = tyolo.load_plate_detector(PLATE, device="cpu")
+    return kf.front_pack(model.to(torch.bfloat16))
+
+
+def _unpack_frags(flat, ksteps, n):
+    """The K x N matrix a run of B fragments holds, read as the kernel's
+    lanes read it: lane l's 16 bytes of n-tile pair q at k-step s are b0, b1
+    of n-tile 2q, then of 2q + 1; register b0 of n-tile t holds
+    B[16s + 2(l % 4) + e][8t + l // 4] for e = 0, 1 and b1 the rows 8
+    further (the PTX ISA's mma.m16n8k16 B fragment)."""
+    f = flat.float().numpy().reshape(ksteps, n // 16, 32, 4, 2)
+    b = np.full((16 * ksteps, n), np.nan, np.float32)
+    for s in range(ksteps):
+        for q in range(n // 16):
+            for lane in range(32):
+                for word in range(4):
+                    t, reg = 2 * q + word // 2, word % 2
+                    k = 16 * s + 2 * (lane % 4) + 8 * reg
+                    b[k:k + 2, 8 * t + lane // 4] = f[s, q, lane, word]
+    return torch.from_numpy(b)
+
+
+def _unpacked(packed):
+    """Each layer's K x N matrix and bias from packed["mma"] and
+    packed["bias"]."""
+    mats, off = {}, 0
+    for key, ksteps, n in kf.MMA_LAYERS:
+        size = 16 * ksteps * n
+        mats[key] = _unpack_frags(packed["mma"][off:off + size], ksteps, n)
+        off += size
+    assert off == packed["mma"].numel() == kf.MMA_ELEMS
+    sizes = [packed[k].numel() for k in kf.BIAS_KEYS]
+    biases = dict(zip(kf.BIAS_KEYS, torch.split(packed["bias"], sizes)))
+    return mats, biases
+
+
+def test_front_pack_b_fragments_give_back_the_weights(packed_bf16):
+    """The bf16 B fragments, unpacked on the CPU, are the float32 weights
+    bit for bit in the kernel's K order (tap, chunk, channel); the stem's
+    kernel channels 12-15 are zero and 0-11 are its space-to-depth channels
+    in STEM_CHANNELS order; the biases follow BIAS_KEYS."""
+    mats, biases = _unpacked(packed_bf16)
+    for key, ksteps, n in kf.MMA_LAYERS:
+        b = mats[key]
+        assert not torch.isnan(b).any(), key
+        assert b.shape == (16 * ksteps, n)
+        w = packed_bf16[key]
+        if key == "w0":
+            stem = b.reshape(3, 3, 16, 32)
+            assert torch.equal(stem[:, :, 12:], torch.zeros(3, 3, 4, 32))
+            for k, ch in enumerate(kf.STEM_CHANNELS):
+                assert torch.equal(stem[:, :, k], w[:, :, ch])
+            assert sorted(kf.STEM_CHANNELS) == list(range(12))
+        else:
+            assert torch.equal(b, w.reshape(-1, n)), key
+        assert torch.equal(b, kf.gemm_matrix(key, w)), key
+    for key in kf.BIAS_KEYS:
+        assert torch.equal(biases[key], packed_bf16[key])
+    assert packed_bf16["mma"].dtype == torch.bfloat16
+    assert packed_bf16["bias"].numel() == kf.BIAS_ELEMS
+
+
+def test_front_pack_bf16_exact_flag(packed, packed_bf16):
+    """bf16_exact holds for the detector in bf16 (the recognizer's plate
+    model) and not in float32, whose weights bf16 fragments would round."""
+    assert packed_bf16.bf16_exact is True
+    assert packed.bf16_exact is False
+
+
+def _emulate_front(x, packed):
+    """K1's tile pipeline (csrc/yolo_front.cu) in float32: per 8x16 output
+    tile, each layer as M x K @ K x N with the kernel's row and k-step
+    index maps over its shared-memory tiles (rows of 16 channels, one
+    plane per chunk; the stem in four parity planes), B from the unpacked
+    fragments, M padded to 16 with clamped rows."""
+    mats, biases = _unpacked(packed)
+    B, H, W, _ = x.shape
+    h2, w2, h4, w4 = H // 2, W // 2, H // 4, W // 4
+    DW, SW, ZW, PH, PW = 18, 37, 39, 11, 19
+    SP, DP = 4 * PH * PW, 10 * DW
+
+    def conv(src, npos, row, koff, key, bias):
+        ksteps = mats[key].shape[0] // 16
+        p = torch.arange(-(-npos // 16) * 16).clamp(max=npos - 1)
+        a = torch.cat([src[row(p) + koff(s)] for s in range(ksteps)], 1)
+        return (a @ mats[key] + biases[bias])[:npos]
+
+    def planes(y, nrows, pos):
+        t = torch.zeros(y.shape[1] // 16 * nrows, 16)
+        for c in range(y.shape[1] // 16):
+            t[c * nrows + pos] = y[:, 16 * c:16 * c + 16]
+        return t
+
+    def domain(gy, gx, h, w):
+        return (((gy >= 0) & (gy < h) & (gx >= 0) & (gx < w))
+                .float()[:, None])
+
+    xp = F.pad(x.float(), (0, 0, 8, 8, 8, 8))
+    out = torch.zeros(B, h4, w4, 64)
+    for b in range(B):
+        for r0 in range(0, h4, 8):
+            for c0 in range(0, w4, 16):
+                fr = xp[b, 4 * r0:4 * r0 + 46, 4 * c0:4 * c0 + 78]
+                z = F.pad(fr.reshape(23, 2, ZW, 2, 3).permute(0, 2, 1, 3, 4)
+                          .reshape(-1, 12), (0, 4))
+                p = torch.arange(21 * SW)
+                sy, sx = p // SW, p % SW
+                y = conv(z, 21 * SW, lambda p: (p // SW) * ZW + p % SW,
+                         lambda s: (s // 3) * ZW + s % 3, "w0", "b0")
+                y = silu(y) * domain(2 * r0 - 3 + sy, 2 * c0 - 3 + sx, h2, w2)
+                stem = planes(y, SP, ((2 * (sy % 2) + sx % 2) * PH + sy // 2)
+                              * PW + sx // 2)
+
+                def down_koff(s):
+                    ky, kx = (s // 2) // 3, (s // 2) % 3
+                    return ((s % 2) * SP + (2 * (ky % 2) + kx % 2) * PH * PW
+                            + (ky // 2) * PW + kx // 2)
+
+                p = torch.arange(DP)
+                dom = domain(r0 - 1 + p // DW, c0 - 1 + p % DW, h4, w4)
+                d = conv(stem, DP, lambda p: (p // DW) * PW + p % DW,
+                         down_koff, "w1", "b1")
+                d = planes(silu(d) * dom, DP, p)
+                a = silu(conv(d, DP, lambda p: p, lambda s: s * DP, "w12",
+                              "b12")) * dom
+                ta = planes(a, DP, p)
+                bb = silu(conv(ta, DP, lambda p: p, lambda s: s * DP, "wm1",
+                               "bm1")) * dom
+                bb = planes(bb, DP, p)
+                interior = ((p[:128] // 16) + 1) * DW + p[:128] % 16 + 1
+                m = silu(conv(bb, 128, lambda p: (p // 16) * DW + p % 16,
+                              lambda s: (s % 2) * DP + ((s // 2) // 3) * DW
+                              + (s // 2) % 3, "wm2", "bm2"))
+                res = a[interior, :32] + m       # the shortcut, in place
+                ta[interior], ta[DP + interior] = res[:, :16], res[:, 16:]
+                y = silu(conv(ta, 128, lambda p: ((p // 16) + 1) * DW
+                              + p % 16 + 1, lambda s: s * DP, "w3", "b3"))
+                out[b, r0:r0 + 8, c0:c0 + 16] = y.reshape(8, 16, 64)
+    return out
+
+
+def test_implicit_gemm_emulation_matches_plain_version(packed_bf16, frames):
+    """The kernel's implicit-GEMM index math (tile rows, tap and chunk
+    shifts, the stem's parity planes read at stride 2, the fragment order
+    of B, the clamped M rows) emulated in float32 reproduces front_plain on
+    the same packed bf16 weights at (1, 64, 128) within 1e-4: both sum in
+    float32 and differ only in the order of the sums."""
+    x = torch.from_numpy(frames)
+    got = _emulate_front(x, packed_bf16)
+    ref = kf.front_plain(x, packed_bf16)
+    assert got.shape == ref.shape == (1, 16, 32, 64)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-4)
+
+
+# Shapes K1 takes on the card: the production batch slice, the square
+# detector of tools/prof_pipeline.py, the CPU tests' frame, and the least
+# whole tile.
+CARD_SHAPES = [(2, 736, 1280), (1, 1280, 1280), (1, 64, 128), (3, 32, 64)]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_card():
-    """K1 vs front_plain on the card, bf16, real weights, (2, 736, 1280, 3),
-    within kf.TOL_* (0.03 + 2 bf16 ulps elementwise over the whole tensor,
-    borders included; interior mean 0.004): both round at the same points,
-    so only the order of the fp32 sums differs."""
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_kernel_matches_plain_version_on_card(shape):
+    """K1 vs front_plain on the card, bf16, real weights, at each of
+    CARD_SHAPES, within kf.TOL_* (0.03 + 2 bf16 ulps elementwise over the
+    whole tensor, borders included; interior mean 0.004): both round at the
+    same points, so only the order of the fp32 sums differs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -127,7 +294,7 @@ def test_kernel_matches_plain_version_on_card():
     model = tyolo.load_plate_detector(PLATE, device="cuda").to(torch.bfloat16)
     p = kf.front_pack(model)
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.rand((2, 736, 1280, 3), generator=g, device="cuda"
+    x = torch.rand((*shape, 3), generator=g, device="cuda"
                    ).to(torch.bfloat16)
     before = kf.yolo_front.launches
     got = kf.yolo_front(x, p)
@@ -137,3 +304,35 @@ def test_kernel_matches_plain_version_on_card():
     max_err, ratio, interior = kf.front_errors(got, ref)
     assert ratio < 1.0, (max_err, ratio)
     assert interior < kf.TOL_INTERIOR_MEAN, interior
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_a_pack_that_is_not_bf16_exact():
+    """The float32 detector's pack holds weights that bf16 fragments would
+    round: a CUDA launch with it raises ValueError and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = kf.front_pack(tyolo.load_plate_detector(PLATE, device="cuda"))
+    assert p.bf16_exact is False
+    x = torch.zeros((1, 32, 64, 3), dtype=torch.bfloat16, device="cuda")
+    before = kf.yolo_front.launches
+    with pytest.raises(ValueError):
+        kf.yolo_front(x, p)
+    assert kf.yolo_front.launches == before
+
+
+def test_front_variants_apply_to_the_committed_source(capsys):
+    """Every design variant of lpr_tpu_torch/tools/front_variants.py still
+    edits the committed csrc/yolo_front.cu (each anchor found once), and
+    its --list mode runs without a card."""
+    from lpr_tpu_torch.tools import front_variants as fv
+
+    source = fv.SOURCE.read_text()
+    for name, (_, edits) in fv.VARIANTS.items():
+        edited = fv.apply(source, edits)
+        assert (edited == source) == (name == "base"), name
+    with pytest.raises(ValueError):
+        fv.apply(source, [("no such line", "")])
+    assert fv.main(["--list"]) == 0
+    out = capsys.readouterr().out
+    assert all(name in out for name in fv.VARIANTS)
