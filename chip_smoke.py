@@ -11,9 +11,10 @@ Phases, each printing one line with its elapsed seconds:
    K4 stage variants, lpsr K2, yolo_mid K3) built with nvcc (one process
    per source, all started together), loaded with ctypes; prints nvcc's
    register / shared-memory / spill report and the HMMA (tensor-core mma)
-   instructions by cuobjdump -sass in lpsr_kernel<bf16> and in K1's
-   front_kernel instances but the dma one (fails if lpsr_kernel<bf16> or
-   front_kernel<FULL> has none).
+   instructions by cuobjdump -sass in lpsr_kernel<bf16>, in K1's
+   front_kernel instances but the dma one and in K3's mid_kernel (fails if
+   lpsr_kernel<bf16>, front_kernel<FULL> or mid_kernel has none), and
+   nvcc's registers and spills for mid_kernel.
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes (K1 on frames, K2 on 24 plate crops in bf16 and
    float32, K3 on K1's output for 8 frames; the real weights), with the
@@ -24,7 +25,12 @@ Phases, each printing one line with its elapsed seconds:
    in bf16 through cuDNN, the composed library yardstick (its library_ms).
    K2 also at the further shapes of tests/test_torch_lpsr_kernel.py in
    bf16, and beside it LPSR.forward in bf16, the composed library
-   yardstick (its library_ms).
+   yardstick (its library_ms).  K3 also on K1's output for the further
+   frames of tests/test_torch_mid.py and on its random front grids (one
+   with a ragged tile in both axes), a launch with a pack that is not
+   bf16-exact must raise ValueError, and beside it the model's own layers
+   3-4 in bf16 through cuDNN, the composed library yardstick (its
+   library_ms).
 4. probe   — K4, K1's four stage variants (dma, stem, down, full; one
    instance each of the K1 source): the probe tool's timing of them at
    (8, 736, 1280, 3) (K4's path, with its launch counts), then each
@@ -92,6 +98,10 @@ LPSR_N = BATCH * 3      # plate crops per step: batch x max_plates
 LPSR_HW = (32, 192)
 # K1's further shapes (B, H, W): as tests/test_torch_front.py's.
 K1_SHAPES = [(1, 1280, 1280), (1, 64, 128), (3, 32, 64)]
+# K3's further inputs: K1's output for frames (B, H, W) and random front
+# grids (B, H4, W4, 64), as tests/test_torch_mid.py's.
+K3_FRONT_SHAPES = [(2, 736, 1280), (1, 1280, 1280)]
+K3_RANDOM_SHAPES = [(3, 20, 36, 64), (1, 16, 32, 64)]
 # K2's further shapes (N, H, W): as tests/test_torch_lpsr_kernel.py's.
 K2_SHAPES = [(1, 32, 192), (7, 32, 192), (2, 16, 96), (2, 48, 200),
              (3, 8, 64), (1, 8, 400)]
@@ -166,6 +176,18 @@ def main() -> int:
         flush=True)
     if k1_hmma["full"] < 1:
         raise AssertionError("no HMMA in front_kernel<FULL>")
+    # K3's one kernel, mid_kernel: its tensor-core mma and nvcc's report.
+    k3_hmma = sum(c for fn, c in _build.sass_counts(
+        libs["yolo_mid"].path, "HMMA").items() if "mid_kernel" in fn)
+    log = libs["yolo_mid"].ptxas_log
+    at = [i for i, ln in enumerate(log) if "mid_kernel" in ln]
+    k3_nvcc = [ln for ln in log[at[0]:at[0] + 4]
+               if "Used" in ln or "spill" in ln] if at else []
+    print(f"K3 mid_kernel: {k3_hmma} HMMA instructions; nvcc "
+          f"{'; '.join(k3_nvcc) or 'not reported (library already built)'}",
+          flush=True)
+    if k3_hmma < 1:
+        raise AssertionError("no HMMA in mid_kernel")
     phase("build", t, f"; {sorted(libs)}; dynamic smem per block {smem} B")
 
     def counts_to_zero():
@@ -202,10 +224,12 @@ def main() -> int:
     packed = kf.front_pack(plate)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_max_err = None
+    k1_outs = {}          # K1's outputs, K3's further inputs
     for shape in [(2, *DET_HW)] + K1_SHAPES:
         xs = torch.rand((*shape, 3), generator=gen, device="cuda"
                         ).to(torch.bfloat16)
         got = kf.yolo_front(xs, packed)
+        k1_outs[shape] = got
         ref = kf.front_plain(xs, packed)
         torch.cuda.synchronize()
         max_err, ratio, mean_int = kf.front_errors(got, ref)
@@ -318,36 +342,68 @@ def main() -> int:
         "library_ms": lib_ms,
     })
 
-    # K3 — detector layers 3-4, on K1's real output for 8 frames.
+    # K3 — detector layers 3-4, on K1's real output for 8 frames (the main
+    # path's shape), then on K1's output for the further frames and on
+    # random front grids, one with a ragged tile in both axes.
     mid_packed = km.mid_pack(plate)
     y8 = kf.yolo_front(x8, packed)
-    got = km.yolo_mid(y8, mid_packed)
-    ref = km.mid_plain(y8, mid_packed)
-    torch.cuda.synchronize()
-    max_err, ratio, mean_int = km.mid_errors(got, ref)
-    diff = (got.float() - ref.float()).abs()
-    print(f"K3 yolo_mid vs mid_plain on K1's output {tuple(y8.shape)} "
-          f"bf16: max_abs_err {max_err}, max err/(abs {km.TOL_ABS} + rel "
-          f"{km.TOL_REL}) {ratio} (< 1), interior mean {mean_int} "
-          f"(< {km.TOL_INTERIOR_MEAN}), {int((diff > 0).sum().item())} of "
-          f"{got.numel()} differ, max |plain| "
-          f"{ref.float().abs().max().item()}", flush=True)
-    if not (ratio < 1.0 and mean_int < km.TOL_INTERIOR_MEAN):
-        raise AssertionError("K3 disagrees with its plain version")
+    k3_max_err = None
+    k3_inputs = [("K1's output", y8)] + [
+        ("K1's output", k1_outs[s]) for s in K3_FRONT_SHAPES] + [
+        ("random", torch.rand(s, generator=gen, device="cuda"
+                              ).to(torch.bfloat16)) for s in K3_RANDOM_SHAPES]
+    for label, ys in k3_inputs:
+        got = km.yolo_mid(ys, mid_packed)
+        ref = km.mid_plain(ys, mid_packed)
+        torch.cuda.synchronize()
+        max_err, ratio, mean_int = km.mid_errors(got, ref)
+        diff = (got.float() - ref.float()).abs()
+        print(f"K3 yolo_mid vs mid_plain on {label} {tuple(ys.shape)} bf16: "
+              f"max_abs_err {max_err}, max err/(abs {km.TOL_ABS} + rel "
+              f"{km.TOL_REL}) {ratio} (< 1), interior mean {mean_int} "
+              f"(< {km.TOL_INTERIOR_MEAN}), {int((diff > 0).sum().item())} "
+              f"of {got.numel()} differ, max |plain| "
+              f"{ref.float().abs().max().item()}, finite "
+              f"{bool(torch.isfinite(got.float()).all())}", flush=True)
+        if not (ratio < 1.0 and mean_int < km.TOL_INTERIOR_MEAN
+                and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"K3 disagrees with its plain version at "
+                                 f"{tuple(ys.shape)}")
+        if k3_max_err is None:
+            k3_max_err = max_err         # the main path's shape
+    # A pack whose weights bf16 would round is refused, and nothing runs.
+    mid_packed32 = km.mid_pack(load_plate_detector(CKPT_PLATE))
+    launches_before = km.yolo_mid.launches
+    try:
+        km.yolo_mid(y8, mid_packed32)
+    except ValueError as e:
+        print(f"K3 with a pack that is not bf16-exact: ValueError ({e})",
+              flush=True)
+    else:
+        raise AssertionError("K3 took a pack that is not bf16-exact")
+    if km.yolo_mid.launches != launches_before:
+        raise AssertionError("K3 counted a refused launch")
     k_ms, plain_ms, runs = timed(lambda: km.yolo_mid(y8, mid_packed),
                                  lambda: km.mid_plain(y8, mid_packed), iters)
+    # The library yardstick: the model's own layers 3-4 in bf16 through
+    # cuDNN (a convolution and the C3's nine layers; no single PyTorch
+    # call computes them).
+    with torch.inference_mode():
+        k3_lib_ms = _timing.event_ms(
+            lambda: plate.forward_from(y8, 3, 5), iters)
     work = km.mid_work(BATCH, *y8.shape[1:3])
     bound_ms, bound_by = _timing.bound_ms(work)
     print(f"K3 timing at {tuple(y8.shape)} on {card}: kernel {k_ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms (runs {runs}), bound "
-          f"{bound_ms:.4f} ms ({bound_by}; {work} FLOP, B)", flush=True)
+          f"ms, plain {plain_ms:.4f} ms (runs {runs}), library (layers 3-4 "
+          f"bf16, cuDNN) {k3_lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {work} FLOP, B)", flush=True)
     kernels.append({
         "name": "yolo_mid", "route": "cuda",
         "source": "lpr_tpu_torch/csrc/yolo_mid.cu",
         "replaces": "lpr_tpu/ops/pallas/yolo_mid.py:273",
-        "launches": None, "max_abs_err": max_err, "ms": k_ms,
+        "launches": None, "max_abs_err": k3_max_err, "ms": k_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": k3_lib_ms,
     })
     phase("kernels", t)
 

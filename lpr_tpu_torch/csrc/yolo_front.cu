@@ -38,7 +38,8 @@
 // (lpr_tpu_torch/tools/front_variants.py `no_vertical_halo`), an 11 %
 // ceiling before its row copies and band starts, so the tile stays.
 //
-// Every convolution is an implicit GEMM on the tensor cores (conv_mma):
+// Every convolution is an implicit GEMM on the tensor cores (conv_mma, in
+// csrc/implicit_gemm.cuh with the epilogue helpers; K3 shares it):
 // M = the layer's tile positions (padded to 16 with clamped rows, which
 // repeat the last position), N = output channels, K = taps x 16-channel
 // chunks; mma.sync m16n8k16 bf16 in, float32 accumulators that start from
@@ -86,11 +87,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_conv.cuh"
+#include "implicit_gemm.cuh"
 
 namespace {
 
 using namespace mma_conv;
+using namespace implicit_gemm;
 typedef __nv_bfloat16 bf16;
 
 constexpr int TH = 8;           // output tile rows (H/4 grid)
@@ -142,117 +144,6 @@ constexpr int F_C3 = F_M2 + frag_len(18, 32);
 constexpr int F_END = F_C3 + frag_len(4, 64);
 constexpr int B_STEM = 0, B_DOWN = 32, B_C12 = 96, B_M1 = 160, B_M2 = 192,
               B_C3 = 224, B_END = 288;
-
-// SiLU with the flush, through the SFU's approximate exp2 and reciprocal
-// (ex2.approx.ftz, rcp.approx.ftz; subnormals flush, as the flush below
-// does anyway): a few float32 ulps from the IEEE quotient, so the bf16
-// rounding of a result flips now and then, as a sum taken in another order
-// does.  IEEE expf and division make K1 1.51x slower (0.550 against 0.365
-// ms at (8, 736, 1280, 3); tools/front_variants.py) for
-// 1.4 % fewer outputs that differ from front_plain by an ulp (69,434
-// against 70,386 of 7.5 M at (2, 736, 1280, 3), the largest error the
-// same).  For v < -88, 1 + exp(-v) is inf and its reciprocal 0.
-__device__ __forceinline__ float silu_flush(float v) {
-  float e, r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * -1.4426950408889634f));
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + e));
-  const float y = v * r;
-  return fabsf(y) < 1e-30f ? 0.0f : y;
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// SiLU of a channel pair (or zeros outside the domain) as two bf16,
-// computed either way and selected, so that no branch splits the warp.
-__device__ __forceinline__ uint32_t silu2(float a, float b, bool in_domain) {
-  const uint32_t v = pack2(silu_flush(a), silu_flush(b));
-  return in_domain ? v : 0u;
-}
-
-// Byte offset of channels (co, co+1) of row pos in a tile of np rows a
-// chunk plane.
-__device__ __forceinline__ int pair_off(int np, int pos, int co) {
-  return swz((co >> 4) * np + pos, (co >> 3) & 1) + (co & 7) * 2;
-}
-
-// One convolution as an implicit GEMM: NPOS output positions x N output
-// channels, K = KS k-steps of 16 input channels.  Lane-row r of m-tile t
-// is position p = min(16t + r, NPOS - 1); its A row at k-step s is row
-// row(p) + koff(s) of the tile at shared address `in` (koff folds the tap's
-// shift and the input chunk's plane).  A warp's unit of work is MT m-tiles
-// x NTW n-tiles, units dealt round-robin to the 8 warps.  The epilogue gets
-// each position's fp32 sums, bias included, a channel pair at a time:
-// epi(p, co, v[co], v[co + 1]).  A padding row is clamped there too, so it
-// writes row NPOS - 1's values again, which keeps the epilogue free of
-// branches; an epilogue that reads what it writes needs NPOS % 16 == 0.
-template <int NPOS, int N, int KS, int MT, int NTW, class Row, class Koff,
-          class Epi>
-__device__ __forceinline__ void conv_mma(uint32_t in,
-                                         const uint4* __restrict__ wf,
-                                         const float* __restrict__ bias,
-                                         Row row, Koff koff, Epi epi) {
-  constexpr int NT = N / 8;
-  constexpr int NMT = (NPOS + 15) / 16;
-  constexpr int NMG = (NMT + MT - 1) / MT;
-  constexpr int NNG = NT / NTW;
-  static_assert(NT % NTW == 0 && NTW % 2 == 0, "n-tiles in pairs");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int u = warp; u < NMG * NNG; u += NWARPS) {
-    const int mg = u / NNG, ng = u - mg * NNG;
-    int qa[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-      qa[i] = row(min((mg * MT + i) * 16 + (lane & 15), NPOS - 1));
-    float acc[MT][NTW][4];
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      const float2 b = __ldg(reinterpret_cast<const float2*>(
-          bias + (ng * NTW + j) * 8 + 2 * (lane & 3)));
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        acc[i][j][0] = b.x;
-        acc[i][j][1] = b.y;
-        acc[i][j][2] = b.x;
-        acc[i][j][3] = b.y;
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      uint32_t b[NTW][2];
-#pragma unroll
-      for (int jp = 0; jp < NTW / 2; ++jp) {
-        const uint4 v =
-            __ldg(wf + (s * (NT / 2) + ng * (NTW / 2) + jp) * 32 + lane);
-        b[2 * jp][0] = v.x;
-        b[2 * jp][1] = v.y;
-        b[2 * jp + 1][0] = v.z;
-        b[2 * jp + 1][1] = v.w;
-      }
-      const int off = koff(s);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t a[4];
-        ldmatrix_x4(a, in + swz(qa[i] + off, lane >> 4));
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p =
-            min((mg * MT + i) * 16 + (lane >> 2) + 8 * h, NPOS - 1);
-#pragma unroll
-        for (int j = 0; j < NTW; ++j)
-          epi(p, (ng * NTW + j) * 8 + 2 * (lane & 3), acc[i][j][2 * h],
-              acc[i][j][2 * h + 1]);
-      }
-  }
-}
 
 enum Stage : int { DMA = 0, STEM = 1, DOWN = 2, FULL = 3 };
 
@@ -347,7 +238,7 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
   //    (sy, sx) is row ((2*(sy&1) + (sx&1))*PH + sy/2)*PW + sx/2.
   {
     const int sy0 = 2 * r0 - 3, sx0 = 2 * c0 - 3;
-    conv_mma<SH * SW, 32, 9, 2, 4>(
+    conv_mma<NWARPS, SH * SW, 32, 9, 2, 4>(
         sa, wf + F_STEM, bias + B_STEM,
         [](int p) {
           const int sy = p / SW;
@@ -388,7 +279,7 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
     return (unsigned)(dy0 + oy) < (unsigned)H4 &&
            (unsigned)(dx0 + ox) < (unsigned)W4;
   };
-  conv_mma<DP, 64, 18, 3, 4>(
+  conv_mma<NWARPS, DP, 64, 18, 3, 4>(
       sb, wf + F_DOWN, bias + B_DOWN,
       [](int p) {
         const int oy = p / DW;
@@ -416,7 +307,7 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
   // 4. C3 cv1 | cv2 as one 64->64 1x1 over the haloed down tile -> a.
   unsigned char* const a = rb;
   unsigned char* const bb = rb + 4 * DP * 32;
-  conv_mma<DP, 64, 4, 3, 4>(
+  conv_mma<NWARPS, DP, 64, 4, 3, 4>(
       sa, wf + F_C12, bias + B_C12, [](int p) { return p; },
       [](int s) { return s * DP; },
       [&](int p, int co, float v0, float v1) {
@@ -427,7 +318,7 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
 
   // 5. m.cv1 1x1 on the cv1 half of a (chunks 0-1) -> bb (zero outside the
   //    domain: the padding of m.cv2).
-  conv_mma<DP, 32, 2, 3, 2>(
+  conv_mma<NWARPS, DP, 32, 2, 3, 2>(
       sb, wf + F_M1, bias + B_M1, [](int p) { return p; },
       [](int s) { return s * DP; },
       [&](int p, int co, float v0, float v1) {
@@ -442,7 +333,7 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
   //    position and channel pair belongs to one lane, and nothing reads a
   //    here otherwise), so a's interior becomes cv3's input [m | cv2].
   static_assert(OP % 16 == 0, "no padding row adds the shortcut twice");
-  conv_mma<OP, 32, 18, 1, 4>(
+  conv_mma<NWARPS, OP, 32, 18, 1, 4>(
       smem_u32(bb), wf + F_M2, bias + B_M2,
       [](int p) { return (p >> 4) * DW + (p & 15); },
       [](int s) {
@@ -461,7 +352,7 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
 
   // 7. cv3 1x1 64->64 on the interior of a -> the output tile.
   bf16* const o = out + ((size_t)img * H4 + r0) * W4 * 64 + (size_t)c0 * 64;
-  conv_mma<OP, 64, 4, 1, 8>(
+  conv_mma<NWARPS, OP, 64, 4, 1, 8>(
       sb, wf + F_C3, bias + B_C3,
       [](int p) { return ((p >> 4) + 1) * DW + (p & 15) + 1; },
       [](int s) { return s * DP; },

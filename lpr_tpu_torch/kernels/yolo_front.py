@@ -52,7 +52,7 @@ TOL_INTERIOR_MEAN = 0.004
 # weight key, k-steps (taps x 16-channel input chunks) and output channels.
 # Each weight is a K x N matrix, K = 16 * k-steps running over (tap,
 # chunk, channel), written as bf16 mma.m16n8k16 B fragments
-# (:func:`_b_frags`).  The biases follow BIAS_KEYS in packed["bias"].
+# (:func:`b_frags`).  The biases follow BIAS_KEYS in packed["bias"].
 MMA_LAYERS = (("w0", 9, 32), ("w1", 18, 64), ("w12", 4, 64), ("wm1", 2, 32),
               ("wm2", 18, 32), ("w3", 4, 64))
 BIAS_KEYS = ("b0", "b1", "b12", "bm1", "bm2", "b3")
@@ -106,7 +106,7 @@ def gemm_matrix(key: str, w: Tensor) -> Tensor:
     return w.reshape(-1, w.shape[-1])
 
 
-def _b_frags(b: Tensor) -> Tensor:
+def b_frags(b: Tensor) -> Tensor:
     """A K x N matrix (K, N multiples of 16) as the kernel reads it, bf16,
     flat: per k-step s, per n-tile pair, per lane l, 16 bytes = (b0, b1) of
     n-tile 2*np then of 2*np + 1, where b0 holds B[16s + 2(l%4) + e][8nt +
@@ -172,7 +172,7 @@ def front_pack(model) -> FrontPacked:
     }
     exact = all(torch.equal(packed[k].to(torch.bfloat16).float(), packed[k])
                 for k, _, _ in MMA_LAYERS)
-    packed["mma"] = torch.cat([_b_frags(gemm_matrix(k, packed[k]))
+    packed["mma"] = torch.cat([b_frags(gemm_matrix(k, packed[k]))
                                for k, _, _ in MMA_LAYERS])
     packed["bias"] = torch.cat([packed[k] for k in BIAS_KEYS])
     # own allocations: the kernel reads 16-byte vectors from each base

@@ -4,7 +4,9 @@
 - :func:`mid_pack` — the weight packer (counterpart of
   ``mid_pack_from_params``): checks the layer pattern and gathers the
   detector's BN-folded weights, with C3's cv1 and cv2 joined into one
-  128->128 1x1; :func:`mid_pack_folded` packs folded HWIO arrays.
+  128->128 1x1; :func:`mid_pack_folded` packs folded HWIO arrays.  Besides
+  the float32 weights, the kernel's operands: each layer's weight as bf16
+  mma B fragments (:data:`MMA_LAYERS`) and the biases in one buffer.
 - :func:`yolo_mid` — the wrapper.  A CUDA tensor goes to the kernel in
   ``lpr_tpu_torch/csrc/yolo_mid.cu`` (built with nvcc, loaded with ctypes)
   or raises; only a CPU tensor takes the plain version.
@@ -12,7 +14,8 @@
   reading the same packed weights and rounding where the kernel rounds.
 
 The TPU kernel's parity-plane repack of its input (``pack_mid_input``) is
-TPU layout and is not carried over: the kernel reads K1's NHWC output.
+TPU layout and is not carried over: the kernel reads K1's NHWC output and
+splits it into parity planes itself, in shared memory.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lpr_tpu_torch.kernels.yolo_front import FrontPacked, b_frags
 from lpr_tpu_torch.ops.nn import silu
 
 Tensor = torch.Tensor
@@ -38,9 +42,24 @@ TOL_ABS = 0.05
 TOL_REL = 2.0 ** -7
 TOL_INTERIOR_MEAN = 0.006
 
-# Order of the packed tensors in the C launcher's argument list.
-PACK_KEYS = ("w3", "b3", "w12", "b12", "wa1", "ba1", "wa2", "ba2", "wb1",
-             "bb1", "wb2", "bb2", "w3o", "b3o")
+# The kernel's GEMM operands, in the order of packed["mma"]: per layer its
+# weight key, k-steps (taps x 16-channel input chunks) and output channels.
+# Each weight is a K x N matrix, K = 16 * k-steps running over (tap,
+# chunk, channel) of the HWIO (or (cin, cout)) weight, written as bf16
+# mma.m16n8k16 B fragments (:func:`lpr_tpu_torch.kernels.yolo_front.b_frags`).
+# The biases follow BIAS_KEYS in packed["bias"].
+MMA_LAYERS = (("w3", 36, 128), ("w12", 8, 128), ("wa1", 4, 64),
+              ("wa2", 36, 64), ("wb1", 4, 64), ("wb2", 36, 64),
+              ("w3o", 8, 128))
+BIAS_KEYS = ("b3", "b12", "ba1", "ba2", "bb1", "bb2", "b3o")
+MMA_ELEMS = sum(ks * 16 * n for _, ks, n in MMA_LAYERS)     # 188,416
+BIAS_ELEMS = 640
+
+
+class MidPacked(FrontPacked):
+    """:func:`mid_pack`'s tensors by key, and ``bf16_exact``: whether the
+    bf16 B fragments hold the float32 weights exactly, which the kernel
+    needs."""
 
 
 def mid_geom(h4: int, w4: int) -> Tuple[int, int]:
@@ -53,7 +72,7 @@ def mid_geom(h4: int, w4: int) -> Tuple[int, int]:
     return h4 // 2, w4 // 2
 
 
-def mid_pack_folded(p_l3: Dict, p_c3: Dict, device=None) -> Dict[str, Tensor]:
+def mid_pack_folded(p_l3: Dict, p_c3: Dict, device=None) -> MidPacked:
     """Packed weights from BN-folded HWIO arrays (numpy or tensors), the
     arguments of ``lpr_tpu``'s ``pack_mid_weights``: ``p_l3`` {w (3,3,64,128),
     b}; ``p_c3`` cv1, cv2 (1,1,128,64), cv3 (1,1,128,128), m: two of
@@ -61,7 +80,10 @@ def mid_pack_folded(p_l3: Dict, p_c3: Dict, device=None) -> Dict[str, Tensor]:
 
     fp32 tensors: HWIO ``w3``, ``wa2``, ``wb2``; (cin, cout) ``w12`` (cv1 in
     output channels 0-63, cv2 in 64-127), ``wa1``, ``wb1``, ``w3o``; biases
-    (cout,)."""
+    (cout,).  For the kernel: ``mma``, the seven weights' bf16 B fragments
+    in :data:`MMA_LAYERS` order, and ``bias``, the biases in
+    :data:`BIAS_KEYS` order (fp32); ``bf16_exact`` tells whether every
+    weight is representable in bf16 (as a bf16 model's are)."""
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32) if not
                                isinstance(a, Tensor) else a).float()
@@ -80,17 +102,25 @@ def mid_pack_folded(p_l3: Dict, p_c3: Dict, device=None) -> Dict[str, Tensor]:
         "wb2": t(m1["cv2"]["w"]), "bb2": t(m1["cv2"]["b"]),
         "w3o": mat(p_c3["cv3"]), "b3o": t(p_c3["cv3"]["b"]),
     }
+    packed = {k: v.to(device) for k, v in packed.items()}
+    exact = all(torch.equal(packed[k].to(torch.bfloat16).float(), packed[k])
+                for k, _, _ in MMA_LAYERS)
+    packed["mma"] = torch.cat([b_frags(packed[k].reshape(-1, n))
+                               for k, _, n in MMA_LAYERS])
+    packed["bias"] = torch.cat([packed[k] for k in BIAS_KEYS])
     # own allocations: the kernel reads 16-byte vectors from each base
-    return {k: v.to(device).contiguous().clone() for k, v in packed.items()}
+    return MidPacked({k: v.contiguous().clone() for k, v in packed.items()},
+                     bool(exact))
 
 
-def mid_pack(model) -> Dict[str, Tensor]:
+def mid_pack(model) -> MidPacked:
     """Packed layer 3-4 weights of a
     :class:`~lpr_tpu_torch.models.yolo.YoloModel` whose layer 3 is
     Conv(64->128, k3, s2) and layer 4 C3(128->128, n=2, shortcut), both
     sequential, layer 3 read by no other layer (layer 4 may be: the kernel
     writes its whole output); raises ValueError otherwise (where the JAX
-    packer returns None).  Holds the model's own values on its device."""
+    packer returns None).  Holds the model's own values on its device (so
+    a bf16 model packs bf16-representable weights)."""
     from lpr_tpu_torch.models.yolo import C3, Conv
 
     ls = model.layers
@@ -155,15 +185,28 @@ def mid_errors(got: Tensor, ref: Tensor) -> Tuple[float, float, float]:
             err[:, 2:-2, 2:-2].mean().item())
 
 
+def bind(lib: ctypes.CDLL):
+    """K3's launcher in a library built from ``csrc/yolo_mid.cu`` (or an
+    edited copy of it), with its argument types; raises if it reads other
+    packed sizes than mid_pack's."""
+    fn = lib.lpr_yolo_mid_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    for f in (fn, lib.lpr_yolo_mid_mma_elems, lib.lpr_yolo_mid_bias_elems):
+        f.restype = ctypes.c_int
+    sizes = (lib.lpr_yolo_mid_mma_elems(), lib.lpr_yolo_mid_bias_elems())
+    if sizes != (MMA_ELEMS, BIAS_ELEMS):
+        raise RuntimeError(f"csrc/yolo_mid.cu reads {sizes} packed "
+                           f"elements, mid_pack packs "
+                           f"{(MMA_ELEMS, BIAS_ELEMS)}")
+    return fn
+
+
 @functools.cache
 def _launcher():
     from lpr_tpu_torch.kernels._build import library
 
-    fn = library("yolo_mid").lpr_yolo_mid_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(library("yolo_mid"))
 
 
 def yolo_mid(y: Tensor, packed: Dict[str, Tensor]) -> Tensor:
@@ -171,8 +214,9 @@ def yolo_mid(y: Tensor, packed: Dict[str, Tensor]) -> Tensor:
     (B, H4, W4, 64) -> (B, H4/2, W4/2, 128).
 
     A CUDA tensor launches the K3 kernel on the current stream (bf16,
-    contiguous, H4 and W4 even; anything else raises) and adds one to
-    ``yolo_mid.launches``; a CPU tensor takes :func:`mid_plain`."""
+    contiguous, H4 and W4 even, a pack whose ``bf16_exact`` is True;
+    anything else raises) and adds one to ``yolo_mid.launches``; a CPU
+    tensor takes :func:`mid_plain`."""
     if y.device.type == "cpu":
         return mid_plain(y, packed)
     if y.device.type != "cuda":
@@ -185,18 +229,23 @@ def yolo_mid(y: Tensor, packed: Dict[str, Tensor]) -> Tensor:
         raise ValueError("yolo_mid kernel takes a contiguous NHWC tensor")
     B, H4, W4, _ = y.shape
     h8, w8 = mid_geom(H4, W4)
-    for k in PACK_KEYS:
+    if not getattr(packed, "bf16_exact", False):
+        raise ValueError("the yolo_mid kernel multiplies bf16 weights: pack "
+                         "a bf16 model (mid_pack's bf16_exact is not True)")
+    for k, dt, n in (("mma", torch.bfloat16, MMA_ELEMS),
+                     ("bias", torch.float32, BIAS_ELEMS)):
         t = packed[k]
-        if (t.device != y.device or t.dtype != torch.float32
+        if (t.device != y.device or t.dtype != dt or t.numel() != n
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"packed[{k!r}] must be a contiguous, 16-byte "
-                             f"aligned float32 tensor on {y.device}")
+                             f"aligned {dt} tensor of {n} elements on "
+                             f"{y.device}")
     out = torch.empty((B, h8, w8, 128), dtype=torch.bfloat16, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = _launcher()(y.data_ptr(),
-                          *[packed[k].data_ptr() for k in PACK_KEYS],
-                          out.data_ptr(), B, H4, W4, stream)
+        err = _launcher()(y.data_ptr(), packed["mma"].data_ptr(),
+                          packed["bias"].data_ptr(), out.data_ptr(), B, H4,
+                          W4, stream)
     if err != 0:
         raise RuntimeError(f"yolo_mid kernel launch failed: cudaError {err}")
     yolo_mid.launches += 1

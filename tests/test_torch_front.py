@@ -322,17 +322,26 @@ def test_kernel_rejects_a_pack_that_is_not_bf16_exact():
 
 
 def test_front_variants_apply_to_the_committed_source(capsys):
-    """Every design variant of lpr_tpu_torch/tools/front_variants.py still
-    edits the committed csrc/yolo_front.cu (each anchor found once), and
-    its --list mode runs without a card."""
+    """Every design variant of lpr_tpu_torch/tools/front_variants.py, K1's
+    and K3's, still edits the committed kernel source (csrc/yolo_front.cu,
+    csrc/yolo_mid.cu) and csrc/implicit_gemm.cuh, which both include (each
+    edit names its file, each anchor found once there), and its --list
+    mode runs without a card."""
     from lpr_tpu_torch.tools import front_variants as fv
 
-    source = fv.SOURCE.read_text()
-    for name, (_, edits) in fv.VARIANTS.items():
-        edited = fv.apply(source, edits)
-        assert (edited == source) == (name == "base"), name
+    for kernel, (source, variants) in fv.KERNELS.items():
+        texts = fv.sources(kernel)
+        assert sorted(texts) == sorted([source.name, "implicit_gemm.cuh"])
+        assert '#include "implicit_gemm.cuh"' in texts[source.name]
+        for name, (_, edits) in variants.items():
+            edited = fv.apply(texts, edits)
+            assert (edited == texts) == (name == "base"), (kernel, name)
+    texts = fv.sources()
     with pytest.raises(ValueError):
-        fv.apply(source, [("no such line", "")])
-    assert fv.main(["--list"]) == 0
-    out = capsys.readouterr().out
-    assert all(name in out for name in fv.VARIANTS)
+        fv.apply(texts, [("yolo_front.cu", "no such line", "")])
+    with pytest.raises(ValueError):
+        fv.apply(texts, [("lpsr.cu", "", "")])
+    for kernel, (_, variants) in fv.KERNELS.items():
+        assert fv.main(["--kernel", kernel, "--list"]) == 0
+        out = capsys.readouterr().out
+        assert all(name in out for name in variants)
