@@ -7,30 +7,33 @@ Phases, each printing one line with its elapsed seconds:
 
 1. device  — the card's name and power limit (nvidia-smi); fails without a
    CUDA device.
-2. build   — every kernel in lpr_tpu_torch/csrc (yolo_front K1 and its
-   K4 stage variants, lpsr K2, yolo_mid K3) built with nvcc (one process
-   per source, all started together), loaded with ctypes; prints nvcc's
-   register / shared-memory / spill report and the HMMA (tensor-core mma)
-   instructions by cuobjdump -sass in lpsr_kernel<bf16>, in K1's
-   front_kernel instances but the dma one and in K3's mid_kernel (fails if
-   lpsr_kernel<bf16>, front_kernel<FULL> or mid_kernel has none), and
-   nvcc's registers and spills for mid_kernel.
+2. build   — every kernel in lpr_tpu_torch/csrc (yolo_front K1 with its
+   uint8 instance and its K4 stage variants, lpsr K2, yolo_mid K3) built
+   with nvcc (one process per source, all started together), loaded with
+   ctypes; prints nvcc's register / shared-memory / spill report and the
+   HMMA (tensor-core mma) instructions by cuobjdump -sass in
+   lpsr_kernel<bf16>, in K1's front_kernel instances but the dma one (the
+   bf16 stages and the uint8 FULL instance) and in K3's mid_kernel (fails
+   if lpsr_kernel<bf16>, front_kernel<FULL, bf16>, front_kernel<FULL,
+   uint8_t> or mid_kernel has none), and nvcc's registers and spills for
+   the uint8 instance and mid_kernel.
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes (K1 on frames, K2 on 24 plate crops in bf16 and
-   float32, K3 on K1's output for 8 frames; the real weights), with the
-   tolerance stated beside it, then both timed with CUDA events (plain,
-   kernel, kernel, plain).  K1 also at the further shapes of
+   the main path's shapes (K1 on frames in bf16 and on uint8 frames with
+   1/255 folded into its stem, K2 on 24 plate crops in bf16 and float32,
+   K3 on K1's output for 8 frames; the real weights), with the tolerance
+   stated beside it, then both timed with CUDA events (plain, kernel,
+   kernel, plain).  K1 (both inputs) also at the further shapes of
    tests/test_torch_front.py, and a launch with a pack that is not
    bf16-exact must raise ValueError; beside K1 the model's own layers 0-2
-   in bf16 through cuDNN, the composed library yardstick (its library_ms).
-   K2 also at the further shapes of tests/test_torch_lpsr_kernel.py in
-   bf16, and beside it LPSR.forward in bf16, the composed library
-   yardstick (its library_ms).  K3 also on K1's output for the further
-   frames of tests/test_torch_mid.py and on its random front grids (one
-   with a ragged tile in both axes), a launch with a pack that is not
-   bf16-exact must raise ValueError, and beside it the model's own layers
-   3-4 in bf16 through cuDNN, the composed library yardstick (its
-   library_ms).
+   in bf16 through cuDNN (for the uint8 instance on bf16(u8) / 255), the
+   composed library yardstick (its library_ms).  K2 also at the further
+   shapes of tests/test_torch_lpsr_kernel.py in bf16, and beside it
+   LPSR.forward in bf16, the composed library yardstick (its library_ms).
+   K3 also on K1's output for the further frames of tests/test_torch_mid.py
+   and on its random front grids (one with a ragged tile in both axes), a
+   launch with a pack that is not bf16-exact must raise ValueError, and
+   beside it the model's own layers 3-4 in bf16 through cuDNN, the
+   composed library yardstick (its library_ms).
 4. probe   — K4, K1's four stage variants (dma, stem, down, full; one
    instance each of the K1 source): the probe tool's timing of them at
    (8, 736, 1280, 3) (K4's path, with its launch counts), then each
@@ -41,40 +44,51 @@ Phases, each printing one line with its elapsed seconds:
    cuDNN (stem: layer 0, down: layers 0-1, full: layers 0-2; none for
    dma).
 5. slice   — PlateRecognizer at the production configuration (720p frames,
-   detector at 736x1280, bf16, the repo's checkpoints) on 8 frames made
-   with numpy from a fixed seed (lpr_tpu_torch.tools.synth): output shapes
-   and finiteness, the K1 and K2 launch counts, the detector's raw head
-   through K1 against the same head through the plain front, and frames/s.
-   Then the same with PipelineConfig(fused_mid=True): the K3 launch count,
-   the head through K1 + K3 against the head through the plain versions,
-   frames/s.
+   detector at 736x1280, bf16, the repo's checkpoints, the step frozen
+   into a CUDA graph as freeze_params does by default) on 8 frames made
+   with numpy from a fixed seed (lpr_tpu_torch.tools.synth): the first
+   step captures the graph, the second replays it with the launch counts
+   read around it (K1 and K2); output shapes and finiteness; the graph's
+   outputs equal to the eager step's bit for bit; the detector's raw head
+   through K1 against the same head through the plain front; frames/s of
+   the frozen and of the eager step.  Then the same with
+   PipelineConfig(packed_input=True) (the host letterbox, K1's uint8
+   instance) and with PipelineConfig(fused_mid=True) (K1 + K3).
 6. stages  — the default slice's step split by stage
    (lpr_tpu_torch.tools.profile_stages, one short round): host ms,
-   device-busy ms and launches per stage.
-7. serve   — InferenceServer(max_batch=8) answers 16 requests; the
-   answers must equal the recognizer's own; then stop().
+   device-busy ms, kernels executed and host launches per stage, the step
+   as a graph replay and, beside it, op by op; then each stage as the
+   frozen step runs it (a device stage captured alone as a CUDA graph).
+7. serve   — InferenceServer(max_batch=8) answers 16 requests through the
+   frozen step; the answers must equal the recognizer's own; then stop().
+8. bench   — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
+   with BENCH_PACKED=1 and =0: its JSON lines (frames/s, flops_per_frame,
+   mfu_pct against the bf16 peak, the card).
 
 Each path is driven with every launch count set to 0 just before it and
-read just after.  The second-to-last line is one JSON object
-{"kernels": [...]} (launch counts of K1 and K2 from the serve phase, the
-main path a user drives, of K3 from the fused_mid slice, of each K4
-variant from the probe phase); the last line is {"ok": true, "device":
-{...}}.  Any failure raises and exits non-zero before that line.  A
-watchdog turns a hang into a failing exit with a traceback.
+read just after; a graph replay adds to each count the launches the
+graph holds.  The second-to-last line is one JSON object {"kernels":
+[...]} (launch counts of K1's bf16 instance and K2 from the serve phase,
+the main path a user drives, of K1's uint8 instance from the packed_input
+slice, of K3 from the fused_mid slice, of each K4 variant from the probe
+phase); the last line is {"ok": true, "device": {...}}.  Any failure
+raises and exits non-zero before that line.  A watchdog turns a hang into
+a failing exit with a traceback.
 """
 
 from __future__ import annotations
 
 import faulthandler
 import json
+import os
 import subprocess
 import sys
 import time
 
 # A whole run, the three nvcc builds (all started together; K2's, the
-# longest, about a minute) included, measured 67-102 s on an H100 before
-# K2's tensor-core stages; the watchdog turns a hang into a failing exit
-# well inside the check's 1200 s.
+# longest, about a minute) included, measured 89-146 s on an H100 before
+# the frozen step, the uint8 instance and the bench phase; the watchdog
+# turns a hang into a failing exit well inside the check's 1200 s.
 WATCHDOG_S = 480
 SEED = 0
 BATCH = 8
@@ -165,17 +179,30 @@ def main() -> int:
           f"lpsr_kernel<float> {k2_hmma['float']}", flush=True)
     if k2_hmma["bf16"] < 1:
         raise AssertionError("no HMMA in lpsr_kernel<bf16>")
-    # K1's instances front_kernel<STAGE> (mangled front_kernelILi<STAGE>E);
-    # the dma one stages its input and multiplies nothing.
+    # K1's instances front_kernel<STAGE, bf16> (mangled
+    # front_kernelILi<STAGE>E13__nv_bfloat16) and its uint8 instance
+    # front_kernel<FULL, uint8_t> (front_kernelILi3EhE); the dma one
+    # stages its input and multiplies nothing.
     hmma = _build.sass_counts(libs["yolo_front"].path, "HMMA")
     k1_hmma = {st: sum(c for fn, c in hmma.items()
-                       if f"front_kernelILi{i}E" in fn)
+                       if f"front_kernelILi{i}E13__nv_bfloat16" in fn)
                for i, st in enumerate(kf.STAGES) if st != "dma"}
+    k1_hmma["full, uint8"] = sum(c for fn, c in hmma.items()
+                                 if "front_kernelILi3EhE" in fn)
     print(f"K1 HMMA instructions: " + ", ".join(
         f"front_kernel<{st.upper()}> {c}" for st, c in k1_hmma.items()),
         flush=True)
     if k1_hmma["full"] < 1:
-        raise AssertionError("no HMMA in front_kernel<FULL>")
+        raise AssertionError("no HMMA in front_kernel<FULL, bf16>")
+    if k1_hmma["full, uint8"] < 1:
+        raise AssertionError("no HMMA in front_kernel<FULL, uint8_t>")
+    log = libs["yolo_front"].ptxas_log
+    at = [i for i, ln in enumerate(log) if "front_kernelILi3EhE" in ln]
+    k1u8_nvcc = [ln for ln in log[at[0]:at[0] + 4]
+                 if "Used" in ln or "spill" in ln] if at else []
+    print(f"K1 front_kernel<FULL, uint8_t>: nvcc "
+          f"{'; '.join(k1u8_nvcc) or 'not reported (library already built)'}",
+          flush=True)
     # K3's one kernel, mid_kernel: its tensor-core mma and nvcc's report.
     k3_hmma = sum(c for fn, c in _build.sass_counts(
         libs["yolo_mid"].path, "HMMA").items() if "mid_kernel" in fn)
@@ -192,12 +219,14 @@ def main() -> int:
 
     def counts_to_zero():
         kf.yolo_front.launches = 0
+        kf.yolo_front.launches_u8 = 0
         kl.lpsr_fused.launches = 0
         km.yolo_mid.launches = 0
         kf.front_stage.launches = dict.fromkeys(kf.STAGES, 0)
 
     def counts():
         return {"yolo_front": kf.yolo_front.launches,
+                "yolo_front_u8": kf.yolo_front.launches_u8,
                 "lpsr": kl.lpsr_fused.launches,
                 "yolo_mid": km.yolo_mid.launches}
 
@@ -284,6 +313,54 @@ def main() -> int:
         "launches": None, "max_abs_err": k1_max_err, "ms": k_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": k1_lib_ms,
+    })
+
+    # K1's uint8 instance (the TPU kernel's is_u8 mode) — raw letterboxed
+    # bytes with 1/255 folded into the stem — at the main path's shape and
+    # K1's further shapes, against its plain version on the same bytes.
+    packed_u8 = kf.front_pack(plate, input_scale=1.0 / 255.0)
+    k1u8_max_err = None
+    for shape in [(BATCH, *DET_HW), (2, *DET_HW)] + K1_SHAPES:
+        xs = torch.randint(0, 256, (*shape, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+        got = kf.yolo_front(xs, packed_u8)
+        ref = kf.front_plain(xs, packed_u8)
+        torch.cuda.synchronize()
+        max_err, ratio, mean_int = kf.front_errors(got, ref)
+        print(f"K1 yolo_front vs front_plain {(*shape, 3)} uint8: "
+              f"max_abs_err {max_err}, max err/(abs {kf.TOL_ABS} + rel "
+              f"{kf.TOL_REL}) {ratio} (< 1), interior mean {mean_int} "
+              f"(< {kf.TOL_INTERIOR_MEAN}), max |plain| "
+              f"{ref.float().abs().max().item()}", flush=True)
+        if not (ratio < 1.0 and mean_int < kf.TOL_INTERIOR_MEAN):
+            raise AssertionError(f"K1 uint8 disagrees with its plain version "
+                                 f"at {shape}")
+        if k1u8_max_err is None:
+            k1u8_max_err = max_err       # the main path's shape
+    x8u = torch.randint(0, 256, (BATCH, *DET_HW, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    k_ms, plain_ms, runs = timed(lambda: kf.yolo_front(x8u, packed_u8),
+                                 lambda: kf.front_plain(x8u, packed_u8),
+                                 iters)
+    # The library yardstick: the model's layers 0-2 in bf16 through cuDNN
+    # on the same bytes, cast and scaled: bf16(u8) / 255.
+    with torch.inference_mode():
+        lib_ms = _timing.event_ms(lambda: plate.forward_from(
+            x8u.to(torch.bfloat16) / 255.0, 0, 3), iters)
+    work = kf.front_work(BATCH, *DET_HW, in_bytes=1)
+    bound_ms, bound_by = _timing.bound_ms(work)
+    print(f"K1 uint8 timing at ({BATCH}, {DET_HW[0]}, {DET_HW[1]}, 3) on "
+          f"{card}: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms (runs "
+          f"{runs}), library (bf16(u8)/255, layers 0-2 bf16, cuDNN) "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {work} "
+          f"FLOP, B)", flush=True)
+    kernels.append({
+        "name": "yolo_front_u8", "route": "cuda",
+        "source": "lpr_tpu_torch/csrc/yolo_front.cu",
+        "replaces": "lpr_tpu/ops/pallas/yolo_front.py:461",
+        "launches": None, "max_abs_err": k1u8_max_err, "ms": k_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms,
     })
 
     # K2 — the LPSR stage, on the main path's 24 plate crops (bf16 and
@@ -510,10 +587,19 @@ def main() -> int:
                 raise AssertionError(f"{k}: non-finite values")
 
     def check_head(rec, plain_head, label):
+        """The detector's raw head through the kernels against the head
+        through their plain versions, on the step's own detector input:
+        the letterboxed frames in bf16, or the host-letterboxed bytes."""
         with torch.inference_mode():
-            x = torch.as_tensor(frames, device="cuda").to(torch.bfloat16)
-            lb = letterbox(x / 255.0, DET_HW, fill=0.0)[0].contiguous()
-            raw_k = rec.plate_model(lb, front=rec._front, mid=rec._mid)
+            if rec.cfg.packed_input:
+                lb = torch.as_tensor(rec.host_letterbox(frames),
+                                     device="cuda")
+                raw_k = rec.plate_model(None, front=rec._front, mid=rec._mid,
+                                        packed=lb)
+            else:
+                x = torch.as_tensor(frames, device="cuda").to(torch.bfloat16)
+                lb = letterbox(x / 255.0, DET_HW, fill=0.0)[0].contiguous()
+                raw_k = rec.plate_model(lb, front=rec._front, mid=rec._mid)
             raw_p = plain_head(rec, lb)
         head_max = max((a.float() - b.float()).abs().max().item()
                        for a, b in zip(raw_k, raw_p))
@@ -525,16 +611,16 @@ def main() -> int:
         if not (head_max < HEAD_MAX_ERR and head_mean < HEAD_MEAN_ERR):
             raise AssertionError(f"detector head disagrees: {label}")
 
-    def throughput(rec, label):
+    def throughput(step, label):
         steps, rounds = 5, 3
         for _ in range(2):
-            rec.step_raw(frames)
+            step(frames)
         torch.cuda.synchronize()
         step_ms = []
         for _ in range(rounds):
             t_run = time.perf_counter()
             for _ in range(steps):
-                rec.step_raw(frames)
+                step(frames)
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t_run) / steps)
         best = min(step_ms)
@@ -543,50 +629,59 @@ def main() -> int:
               f"{step_ms}; batch {BATCH}, 720p, det {DET_HW[0]}x{DET_HW[1]},"
               f" bf16; host clock around synchronize) on {card}", flush=True)
 
-    # The default configuration: K1 and K2.
-    rec = PlateRecognizer(plate, char, load_lpsr(CKPT_LPSR),
-                          PipelineConfig(det_hw=DET_HW, dtype=torch.bfloat16),
-                          char_names=names)
-    counts_to_zero()
-    out = rec.step_raw(frames)
-    torch.cuda.synchronize()
-    slice_counts = counts()
-    if slice_counts["yolo_front"] < 1 or slice_counts["lpsr"] < 1:
-        raise AssertionError(f"the slice did not launch K1 and K2: "
-                             f"{slice_counts}")
-    check_outputs(out)
-    check_head(rec, lambda r, lb: r.plate_model.forward_from(
-        kf.front_plain(lb, r._front), 3), "K1 vs plain front")
-    results = rec.assemble(to_host(out))
-    n_plates = sum(len(r) for r in results)
-    print(f"slice: {n_plates} plates in {BATCH} frames; first texts "
-          f"{[p['text_sr'] for r in results for p in r][:6]}; launches "
-          f"{slice_counts}", flush=True)
-    throughput(rec, "default (K1, K2)")
+    def identical(a, b):
+        return all(identical(a[k], b[k]) if isinstance(a[k], dict)
+                   else a[k] is None or torch.equal(a[k], b[k]) for k in a)
 
+    def drive(label, plain_head, need, **cfg_kw):
+        """The recognizer at the production configuration (and cfg_kw):
+        its first step captures the graph; the launch counts are read
+        around the second, a replay; the graph's outputs must be the eager
+        step's bit for bit; then both are timed."""
+        r = PlateRecognizer(plate, char, load_lpsr(CKPT_LPSR),
+                            PipelineConfig(det_hw=DET_HW,
+                                           dtype=torch.bfloat16, **cfg_kw),
+                            char_names=names)
+        r.step_raw(frames)
+        counts_to_zero()
+        o = r.step_raw(frames)
+        torch.cuda.synchronize()
+        c = counts()
+        if min(c[k] for k in need) < 1:
+            raise AssertionError(f"the {label} slice did not launch "
+                                 f"{need}: {c}")
+        check_outputs(o)
+        if not identical(o, r.step_eager(frames)):
+            raise AssertionError(f"{label}: the graph's outputs differ "
+                                 f"from the eager step's")
+        check_head(r, plain_head, label)
+        res = r.assemble(to_host(o))
+        print(f"slice {label}: {sum(len(f) for f in res)} plates in {BATCH} "
+              f"frames; first texts "
+              f"{[p['text_sr'] for f in res for p in f][:6]}"
+              f"; graph replay's launches {c} (graph holds "
+              f"{next(iter(r._graphs.values())).launches}); outputs equal "
+              f"to the eager step's, bit for bit", flush=True)
+        throughput(r.step_raw, f"{label}, frozen (one CUDA graph)")
+        throughput(r.step_eager, f"{label}, eager")
+        return r, res, c
+
+    # The default configuration (K1 and K2), the step frozen into a graph.
+    rec, results, slice_counts = drive(
+        "default", lambda r, lb: r.plate_model.forward_from(
+            kf.front_plain(lb, r._front), 3), ("yolo_front", "lpsr"))
+    # packed_input: the host letterbox, K1's uint8 instance, K2.
+    _, _, packed_counts = drive(
+        "packed_input", lambda r, lb: r.plate_model.forward_from(
+            kf.front_plain(lb, r._front), 3), ("yolo_front_u8", "lpsr"),
+        packed_input=True)
     # fused_mid: K1, K3 and K2.
-    rec_mid = PlateRecognizer(
-        plate, char, load_lpsr(CKPT_LPSR),
-        PipelineConfig(det_hw=DET_HW, dtype=torch.bfloat16, fused_mid=True),
-        char_names=names)
-    counts_to_zero()
-    out_mid = rec_mid.step_raw(frames)
-    torch.cuda.synchronize()
-    mid_counts = counts()
-    if min(mid_counts.values()) < 1:
-        raise AssertionError(f"the fused_mid slice did not launch every "
-                             f"kernel: {mid_counts}")
-    check_outputs(out_mid)
-    check_head(rec_mid, lambda r, lb: r.plate_model.forward_from(
-        km.mid_plain(kf.front_plain(lb, r._front), r._mid), 5),
-        "K1 + K3 vs plain front + plain mid")
-    results_mid = rec_mid.assemble(to_host(out_mid))
-    print(f"slice fused_mid: {sum(len(r) for r in results_mid)} plates; "
-          f"first texts {[p['text_sr'] for r in results_mid for p in r][:6]}"
-          f"; launches {mid_counts}", flush=True)
-    throughput(rec_mid, "fused_mid (K1, K3, K2)")
-    phase("slice", t, f"; launches default {slice_counts}, fused_mid "
-          f"{mid_counts}")
+    _, _, mid_counts = drive(
+        "fused_mid", lambda r, lb: r.plate_model.forward_from(
+            km.mid_plain(kf.front_plain(lb, r._front), r._mid), 5),
+        ("yolo_front", "yolo_mid", "lpsr"), fused_mid=True)
+    phase("slice", t, f"; launches default {slice_counts}, packed_input "
+          f"{packed_counts}, fused_mid {mid_counts}")
 
     # ---- 6. stages ------------------------------------------------------
     from lpr_tpu_torch.tools import profile_stages
@@ -594,11 +689,18 @@ def main() -> int:
     t = time.perf_counter()
     step_row, rows, alt = profile_stages.split_rows(rec, frames, calls=2,
                                                     rounds=1)
+    alt.insert(0, profile_stages.eager_step_row(rec, frames, 2, 1))
     print(f"stages: the default step by stage on {card}; batch {BATCH}, "
-          f"720p, det {DET_HW[0]}x{DET_HW[1]}, bf16; per call, one round of "
-          f"2 calls", flush=True)
+          f"720p, det {DET_HW[0]}x{DET_HW[1]}, bf16; the step row one graph "
+          f"replay, the stages and 'step, eager' op by op; launches = "
+          f"kernels executed, host calls = launches issued; per call, one "
+          f"round of 2 calls", flush=True)
     for line in profile_stages.report(step_row, rows, alt):
         print(f"stages: {line}", flush=True)
+    for r in profile_stages.frozen_rows(
+            rec, frames, profile_stages.stage_split(rec, frames)[1], 2, 1):
+        print(f"stages, frozen (each alone as a CUDA graph): {r.line()}",
+              flush=True)
     phase("stages", t)
 
     # ---- 7. serve -------------------------------------------------------
@@ -627,9 +729,26 @@ def main() -> int:
         raise AssertionError("served results differ from recognize()")
     phase("serve", t, f"; {len(served)} requests, launches {serve_counts}")
 
-    kernels[0]["launches"] = serve_counts["yolo_front"]
-    kernels[1]["launches"] = serve_counts["lpsr"]
-    kernels[2]["launches"] = mid_counts["yolo_mid"]
+    # ---- 8. bench -------------------------------------------------------
+    from lpr_tpu_torch import bench
+
+    t = time.perf_counter()
+    bench_counts = {}
+    for mode in ("1", "0"):
+        os.environ.update({"BENCH_PACKED": mode, "BENCH_REPS": "2",
+                           "BENCH_BATCH": "32", "BENCH_STEPS": "30"})
+        counts_to_zero()
+        if bench.main([]) != 0:
+            raise AssertionError(f"lpr_tpu_torch.bench BENCH_PACKED={mode}")
+        bench_counts[mode] = counts()
+    phase("bench", t, f"; launches packed {bench_counts['1']}, raw "
+          f"{bench_counts['0']}")
+
+    by_name = {k["name"]: k for k in kernels}
+    by_name["yolo_front"]["launches"] = serve_counts["yolo_front"]
+    by_name["yolo_front_u8"]["launches"] = packed_counts["yolo_front_u8"]
+    by_name["lpsr"]["launches"] = serve_counts["lpsr"]
+    by_name["yolo_mid"]["launches"] = mid_counts["yolo_mid"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

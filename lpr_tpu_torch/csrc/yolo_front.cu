@@ -9,13 +9,16 @@
 //   C3     cv1|cv2 1x1 64->32+32, m.cv1 1x1 32->32, m.cv2 3x3/p1 32->32,
 //          residual add onto cv1, cv3 1x1 on [m | cv2] 64->64; SiLU after
 //          every conv (with the |y| < 1e-30 -> 0 flush).
-// Input: letterboxed frames (B, H, W, 3) bf16 NHWC; output (B, H/4, W/4, 64)
-// bf16 NHWC.  H % 32 == 0 and W % 64 == 0 (whole output tiles).
+// Input: letterboxed frames (B, H, W, 3) NHWC, bf16 (normalised) or uint8
+// (raw bytes, with 1/255 folded into the stem weights: the TPU kernel's
+// `is_u8` mode); output (B, H/4, W/4, 64) bf16 NHWC.  H % 32 == 0 and
+// W % 64 == 0 (whole output tiles).
 //
 // What bounds it: at 736x1280 one image needs 2.98 G multiply-adds against
-// 5.65 MB of input and 7.54 MB of output (~450 FLOP per byte), so on this
-// card it is compute-bound: ~6.0 us per image at the 989 TFLOP/s bf16
-// tensor-core rate, ~3.9 us for the bytes alone.
+// 5.65 MB of input (2.83 MB as uint8) and 7.54 MB of output (~450 FLOP per
+// byte), so on this card it is compute-bound: ~6.0 us per image at the
+// 989 TFLOP/s bf16 tensor-core rate, ~3.9 us (uint8: ~3.1 us) for the
+// bytes alone.
 //
 // Design.  One thread block of 8 warps per (image, 8x16 tile of the
 // H/4 x W/4 output grid), two blocks an SM.  The block recomputes in shared
@@ -72,6 +75,17 @@
 // holds space-to-depth channel c*4 + i*2 + j, and front_pack orders the
 // stem's B rows to match (values move, none is rounded).
 //
+// The uint8 input (the input type is a template parameter beside the
+// stage) halves the bytes the kernel reads: 3 a pixel, so a tile's first
+// byte 12*c0 - 24 lies 8 bytes past a 16-byte boundary (at 6 a pixel it
+// happened to fall on one).  The staged window is widened to whole
+// aligned chunks, from byte 12*c0 - 32 (16 chunks, 256 bytes a row where
+// 242 are used), and z indexes 8 bytes into it; each byte becomes a bf16
+// exactly (0..255 needs 8 significant bits) while z is built.  The stem
+// then multiplies bf16(u8) by bf16(w0 / 255), where the TPU kernel casts
+// its uint8 window to bf16 the same way (yolo_front.py `xwc`).  Everything
+// after z is the bf16 instance's code.
+//
 // Stage variants (the port of tools/probe_front_stages.py `make_variant`,
 // which shows where K1's time goes): the stage is a template parameter of
 // front_kernel.  DMA stops after staging the space-to-depth tile, STEM after
@@ -120,6 +134,11 @@ constexpr int OP = TH * TW;          // 128
 constexpr int FR_ROWS = 2 * ZH;
 constexpr int FR_CHUNKS = (2 * ZW * 3 * 2 + 15) / 16;
 constexpr int FR_STRIDE = FR_CHUNKS * 16;
+// uint8 frames: 234 bytes a row from byte 12*c0 - 24, staged from the
+// 16-byte boundary 8 bytes before it (W*3 is a multiple of 16 too).
+constexpr int U8_SKIP = 8;
+constexpr int U8_CHUNKS = (U8_SKIP + 2 * ZW * 3 + 15) / 16;
+constexpr int U8_STRIDE = U8_CHUNKS * 16;
 
 // Region A holds z, later the down tile; region B the staged frame rows,
 // then the stem planes, then a (4 chunks) and bb (2 chunks).
@@ -128,6 +147,7 @@ constexpr int D_BYTES = 4 * DP * 32;
 constexpr int REGION_A = Z_BYTES > D_BYTES ? Z_BYTES : D_BYTES;
 constexpr int REGION_B = 2 * SP * 32;
 static_assert(FR_ROWS * FR_STRIDE <= REGION_B, "frame rows fit region B");
+static_assert(FR_ROWS * U8_STRIDE <= REGION_B, "uint8 rows fit region B");
 static_assert(6 * DP * 32 <= REGION_B, "a and bb fit region B");
 static_assert(REGION_A % 16 == 0, "region B stays 16-byte aligned");
 constexpr int SMEM_BYTES = REGION_A + REGION_B;
@@ -168,9 +188,16 @@ __device__ __forceinline__ void store_tile(bf16* __restrict__ out, int img,
   }
 }
 
-template <int STAGE>
+// Two bytes of the staged uint8 window as a bf16 pair (low half first),
+// exactly.
+__device__ __forceinline__ uint32_t u8x2_bf16(const unsigned char* p) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn((float)p[0], (float)p[1]);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int STAGE, class In>
 __global__ void __launch_bounds__(NTHREADS, 2)
-front_kernel(const bf16* __restrict__ x, int H, int W,
+front_kernel(const In* __restrict__ x, int H, int W,
              const uint4* __restrict__ wf, const float* __restrict__ bias,
              bf16* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -185,8 +212,9 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
   // 1. Space-to-depth input tile z, rows [2*r0-4, +ZH), cols [2*c0-4, +ZW).
   //    The frame rows arrive in region B with 16-byte cp.async (zeros
   //    outside the frame: the stem's padding), then each thread builds the
-  //    32-byte rows of its positions from two 12-byte runs.
-  {
+  //    32-byte rows of its positions from two 12-byte runs (bf16), or from
+  //    two 6-byte runs converted to bf16 (uint8).
+  if constexpr (sizeof(In) == 2) {
     const unsigned char* frame =
         reinterpret_cast<const unsigned char*>(x) + (size_t)img * H * W * 6;
     const int fy0 = 4 * r0 - 8, bx0 = (4 * c0 - 8) * 6, row_bytes = W * 6;
@@ -209,6 +237,31 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
           make_uint4(f0[0], f0[1], f0[2], f1[0]);
       *reinterpret_cast<uint4*>(ra + swz(q, 1)) =
           make_uint4(f1[1], f1[2], 0u, 0u);
+    }
+  } else {
+    const unsigned char* frame =
+        reinterpret_cast<const unsigned char*>(x) + (size_t)img * H * W * 3;
+    const int fy0 = 4 * r0 - 8, bx0 = 12 * c0 - 24 - U8_SKIP,
+              row_bytes = W * 3;
+    for (int e = threadIdx.x; e < FR_ROWS * U8_CHUNKS; e += NTHREADS) {
+      const int fr = e / U8_CHUNKS, k = e - fr * U8_CHUNKS;
+      const int gy = fy0 + fr, bx = bx0 + 16 * k;
+      const bool valid = gy >= 0 && gy < H && bx >= 0 && bx + 16 <= row_bytes;
+      cp_async16(sb + fr * U8_STRIDE + 16 * k,
+                 valid ? frame + (size_t)gy * row_bytes + bx : frame, valid);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int q = threadIdx.x; q < ZP; q += NTHREADS) {
+      const int zy = q / ZW, zx = q - zy * ZW;
+      const unsigned char* f0 = rb + 2 * zy * U8_STRIDE + U8_SKIP + 6 * zx;
+      const unsigned char* f1 = f0 + U8_STRIDE;
+      *reinterpret_cast<uint4*>(ra + swz(q, 0)) =
+          make_uint4(u8x2_bf16(f0), u8x2_bf16(f0 + 2), u8x2_bf16(f0 + 4),
+                     u8x2_bf16(f1));
+      *reinterpret_cast<uint4*>(ra + swz(q, 1)) =
+          make_uint4(u8x2_bf16(f1 + 2), u8x2_bf16(f1 + 4), 0u, 0u);
     }
   }
   __syncthreads();
@@ -363,27 +416,30 @@ front_kernel(const bf16* __restrict__ x, int H, int W,
       });
 }
 
-// One instance per stage, indexed by Stage.
-typedef void (*FrontKernel)(const bf16*, int, int, const uint4*,
-                            const float*, bf16*);
-constexpr FrontKernel kFrontKernels[] = {front_kernel<DMA>, front_kernel<STEM>,
-                                         front_kernel<DOWN>, front_kernel<FULL>};
+// One bf16 instance per stage, indexed by Stage, and K1's uint8 instance.
+template <class In>
+using FrontKernel = void (*)(const In*, int, int, const uint4*, const float*,
+                             bf16*);
+constexpr FrontKernel<bf16> kFrontKernels[] = {
+    front_kernel<DMA, bf16>, front_kernel<STEM, bf16>,
+    front_kernel<DOWN, bf16>, front_kernel<FULL, bf16>};
 
-int launch_front(int stage, const void* x, const void* wmma,
+template <class In>
+int launch_front(FrontKernel<In> kernel, const void* x, const void* wmma,
                  const void* bias, void* out, int batch, int height,
                  int width, void* stream) {
-  if (stage < DMA || stage > FULL || batch <= 0 || batch > 65535 ||
-      height <= 0 || width <= 0 || height % 32 != 0 || width % 64 != 0 ||
+  if (batch <= 0 || batch > 65535 || height <= 0 || width <= 0 ||
+      height % 32 != 0 || width % 64 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wmma) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(bias) % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const FrontKernel kernel = kFrontKernels[stage];
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(width / 4 / TW, height / 4 / TH, batch);
   kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)x, height, width, (const uint4*)wmma, (const float*)bias,
+      (const In*)x, height, width, (const uint4*)wmma, (const float*)bias,
       (bf16*)out);
   return (int)cudaGetLastError();
 }
@@ -398,7 +454,18 @@ int launch_front(int stage, const void* x, const void* wmma,
 extern "C" int lpr_yolo_front_bf16(const void* x, const void* wmma,
                                    const void* bias, void* out, int batch,
                                    int height, int width, void* stream) {
-  return launch_front(FULL, x, wmma, bias, out, batch, height, width, stream);
+  return launch_front<bf16>(kFrontKernels[FULL], x, wmma, bias, out, batch,
+                            height, width, stream);
+}
+
+// Launches K1's uint8 instance with lpr_yolo_front_bf16's arguments, but x
+// (B, H, W, 3) uint8 (16-byte aligned) and the stem of the pack scaled by
+// 1/255 (front_pack(model, input_scale=1/255)).
+extern "C" int lpr_yolo_front_u8(const void* x, const void* wmma,
+                                 const void* bias, void* out, int batch,
+                                 int height, int width, void* stream) {
+  return launch_front<uint8_t>(front_kernel<FULL, uint8_t>, x, wmma, bias,
+                               out, batch, height, width, stream);
 }
 
 // Launches the stage variant `stage` (0 dma, 1 stem, 2 down, 3 full = K1)
@@ -408,8 +475,9 @@ extern "C" int lpr_yolo_front_stage_bf16(const void* x, const void* wmma,
                                          const void* bias, void* out,
                                          int batch, int height, int width,
                                          int stage, void* stream) {
-  return launch_front(stage, x, wmma, bias, out, batch, height, width,
-                      stream);
+  if (stage < DMA || stage > FULL) return (int)cudaErrorInvalidValue;
+  return launch_front<bf16>(kFrontKernels[stage], x, wmma, bias, out, batch,
+                            height, width, stream);
 }
 
 // Dynamic shared memory per block, for reports.

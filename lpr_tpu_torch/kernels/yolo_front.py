@@ -7,9 +7,13 @@
   (:func:`lpr_tpu_torch.ops.nn.s2d_stem_weight`), with cv1 and cv2 joined
   into one 64->64 1x1; and the kernel's operands, each layer's weight as
   bf16 mma B fragments (:data:`MMA_LAYERS`) and the biases in one buffer.
+  With ``input_scale`` (1/255) the stem takes raw uint8 frames, as
+  ``pack_front_weights(input_scale=...)`` makes the TPU kernel do.
 - :func:`yolo_front` — the wrapper.  A CUDA tensor goes to the kernel in
   ``lpr_tpu_torch/csrc/yolo_front.cu`` (built with nvcc, loaded with
-  ctypes) or raises; only a CPU tensor takes the plain version.
+  ctypes; bf16 frames, or uint8 frames through the kernel's uint8
+  instance, the TPU kernel's ``is_u8`` mode) or raises; only a CPU tensor
+  takes the plain version.
 - :func:`front_plain` — the same function as a chain of ``F.conv2d`` +
   SiLU, reading the same packed weights.  The CPU tests use it, and the
   chip check holds the kernel against it.
@@ -87,13 +91,19 @@ def front_geom(h: int, w: int) -> Tuple[int, int]:
 
 
 class FrontPacked(dict):
-    """:func:`front_pack`'s tensors by key, and ``bf16_exact``: whether the
-    bf16 B fragments hold the float32 weights exactly, which the kernel
-    needs."""
+    """:func:`front_pack`'s tensors by key; ``bf16_exact``: whether the
+    model's own weights are bf16 values, so that the bf16 B fragments hold
+    the packed weights exactly, which the kernel needs; ``dtype``: the
+    model's dtype, in which :func:`front_plain` computes on uint8 frames;
+    ``input_scale``: the factor folded into the stem."""
 
-    def __init__(self, tensors: Dict[str, Tensor], bf16_exact: bool):
+    def __init__(self, tensors: Dict[str, Tensor], bf16_exact: bool,
+                 dtype: torch.dtype = torch.float32,
+                 input_scale: float = 1.0):
         super().__init__(tensors)
         self.bf16_exact = bf16_exact
+        self.dtype = dtype
+        self.input_scale = input_scale
 
 
 def gemm_matrix(key: str, w: Tensor) -> Tensor:
@@ -123,7 +133,7 @@ def b_frags(b: Tensor) -> Tensor:
     return b.to(torch.bfloat16)[k.to(b.device), col.to(b.device)].reshape(-1)
 
 
-def front_pack(model) -> FrontPacked:
+def front_pack(model, input_scale: float = 1.0) -> FrontPacked:
     """Packed front weights of a :class:`~lpr_tpu_torch.models.yolo.YoloModel`
     whose layers 0-2 are the yolov5s front (S2D stem Conv 3->32 k6 s2 p2,
     Conv 32->64 k3 s2, C3 64->64 n=1 with shortcut, sequential, layers 0/1
@@ -136,7 +146,15 @@ def front_pack(model) -> FrontPacked:
     ``w3`` (64,64); biases (cout,).  For the kernel: ``mma``, the six
     weights' bf16 B fragments in :data:`MMA_LAYERS` order, and ``bias``, the
     biases in :data:`BIAS_KEYS` order (fp32); ``bf16_exact`` tells whether
-    every weight is representable in bf16 (as a bf16 model's are)."""
+    every weight is representable in bf16 (as a bf16 model's are).
+
+    ``input_scale`` (1/255 for raw uint8 frames, the counterpart of
+    ``front_pack_from_params(input_scale=...)``) multiplies the stem weight
+    ``w0`` in float32, and the product is rounded to the model's dtype and
+    stored so: the kernel's bf16 fragments and :func:`front_plain` read the
+    same values (the TPU kernel casts ``w0 * input_scale`` to bf16 the same
+    way).  ``bf16_exact`` is decided on the model's own weights, before the
+    fold, which no bf16 value survives unrounded."""
     from lpr_tpu_torch.models.yolo import C3, Conv
 
     ls = model.layers
@@ -172,19 +190,27 @@ def front_pack(model) -> FrontPacked:
     }
     exact = all(torch.equal(packed[k].to(torch.bfloat16).float(), packed[k])
                 for k, _, _ in MMA_LAYERS)
+    dtype = l0.cv.conv.w.dtype
+    if input_scale != 1.0:
+        scale = torch.tensor(input_scale, dtype=torch.float32)
+        packed["w0"] = (packed["w0"] * scale).to(dtype).float()
     packed["mma"] = torch.cat([b_frags(gemm_matrix(k, packed[k]))
                                for k, _, _ in MMA_LAYERS])
     packed["bias"] = torch.cat([packed[k] for k in BIAS_KEYS])
     # own allocations: the kernel reads 16-byte vectors from each base
     return FrontPacked({k: v.contiguous().clone() for k, v in packed.items()},
-                       bool(exact))
+                       bool(exact), dtype, float(input_scale))
 
 
 def _chain(x: Tensor, packed: Dict[str, Tensor], stop: str) -> Tensor:
     """front_plain's layers in order, stopped after stage ``stop``: the
     space-to-depth input (dma), the stem (stem), the down conv (down) or
-    the C3 output (full), NCHW in ``x``'s dtype."""
-    dt = x.dtype
+    the C3 output (full), NCHW in the compute dtype (:func:`front_plain`).
+    uint8 frames are cast to it unscaled: the pack's stem carries the
+    1/255."""
+    dt = (x.dtype if x.is_floating_point()
+          else getattr(packed, "dtype", torch.float32))
+    x = x.to(dt)
 
     def conv(z, w, b, stride=1, padding=0):
         if w.dim() == 2:
@@ -212,12 +238,15 @@ def _chain(x: Tensor, packed: Dict[str, Tensor], stop: str) -> Tensor:
 
 def front_plain(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
     """The plain PyTorch version: letterboxed frames (B, H, W, 3) ->
-    (B, H/4, W/4, 64) in ``x``'s dtype.
+    (B, H/4, W/4, 64) in the compute dtype: that of float frames; uint8
+    frames (a pack made with ``input_scale=1/255``) are cast to the pack's
+    model dtype unscaled, exactly, as the kernel's uint8 instance casts
+    them to bf16.
 
     It rounds where the kernel (and the TPU kernel) rounds: each conv, its
     bias and SiLU in float32 over the stored inputs, each layer's output
-    stored in ``x``'s dtype, the residual sum rounded once.  For float32
-    input that is a plain float32 chain."""
+    stored in the compute dtype, the residual sum rounded once.  In float32
+    that is a plain float32 chain."""
     return _chain(x, packed, "full").permute(0, 2, 3, 1)
 
 
@@ -251,24 +280,30 @@ def front_errors(got: Tensor, ref: Tensor) -> Tuple[float, float, float]:
 
 
 def bind(lib: ctypes.CDLL):
-    """(K1's launcher, the stage variants' launcher) of a library built from
-    ``csrc/yolo_front.cu`` (or an edited copy of it), with their argument
-    types; raises if it reads other packed sizes than front_pack's."""
-    lib.lpr_yolo_front_bf16.argtypes = ([ctypes.c_void_p] * 4
-                                        + [ctypes.c_int] * 3
-                                        + [ctypes.c_void_p])
+    """(K1's launcher, the stage variants' launcher, K1's uint8 launcher)
+    of a library built from ``csrc/yolo_front.cu`` (or an edited copy of
+    it), with their argument types; the last is None for a source older
+    than the uint8 instance.  Raises if it reads other packed sizes than
+    front_pack's."""
+    u8 = (lib.lpr_yolo_front_u8 if hasattr(lib, "lpr_yolo_front_u8")
+          else None)
+    for fn in (lib.lpr_yolo_front_bf16, u8):
+        if fn is not None:
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
     lib.lpr_yolo_front_stage_bf16.argtypes = ([ctypes.c_void_p] * 4
                                               + [ctypes.c_int] * 4
                                               + [ctypes.c_void_p])
-    for fn in (lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16,
+    for fn in (lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16, u8,
                lib.lpr_yolo_front_mma_elems, lib.lpr_yolo_front_bias_elems):
-        fn.restype = ctypes.c_int
+        if fn is not None:
+            fn.restype = ctypes.c_int
     sizes = (lib.lpr_yolo_front_mma_elems(), lib.lpr_yolo_front_bias_elems())
     if sizes != (MMA_ELEMS, BIAS_ELEMS):
         raise RuntimeError(f"csrc/yolo_front.cu reads {sizes} packed "
                            f"elements, front_pack packs "
                            f"{(MMA_ELEMS, BIAS_ELEMS)}")
-    return lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16
+    return lib.lpr_yolo_front_bf16, lib.lpr_yolo_front_stage_bf16, u8
 
 
 @functools.cache
@@ -280,16 +315,20 @@ def _launchers():
 
 def _launch(x: Tensor, packed: Dict[str, Tensor], name: str,
             stage=None) -> Tensor:
-    """Checks a CUDA launch of K1 (``stage`` None) or of a stage variant,
-    launches it on the current stream and returns the output."""
+    """Checks a CUDA launch of K1 (``stage`` None; bf16 or uint8 frames)
+    or of a stage variant (bf16), launches it on the current stream and
+    returns the output."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{name} kernel takes bfloat16, got {x.dtype}")
+    takes = ((torch.bfloat16,) if stage is not None
+             else (torch.bfloat16, torch.uint8))
+    if x.dtype not in takes:
+        raise ValueError(f"{name} kernel takes {takes}, got {x.dtype}")
     if x.dim() != 4 or x.shape[3] != 3:
         raise ValueError(f"expected (B, H, W, 3), got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} kernel takes a contiguous NHWC tensor")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name} kernel takes a contiguous, 16-byte "
+                         f"aligned NHWC tensor")
     B, H, W, _ = x.shape
     h4, w4 = front_geom(H, W)
     if not getattr(packed, "bf16_exact", False):
@@ -305,13 +344,17 @@ def _launch(x: Tensor, packed: Dict[str, Tensor], name: str,
                              f"aligned {dt} tensor of {n} elements on "
                              f"{x.device}")
     out = torch.empty((B, h4, w4, 64), dtype=torch.bfloat16, device=x.device)
-    k1, variant = _launchers()
+    k1, variant, k1_u8 = _launchers()
+    if x.dtype == torch.uint8 and k1_u8 is None:
+        raise RuntimeError(f"this {name} library has no uint8 instance")
     args = [x.data_ptr(), packed["mma"].data_ptr(), packed["bias"].data_ptr(),
             out.data_ptr(), B, H, W]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = (k1(*args, stream) if stage is None
-               else variant(*args, STAGES.index(stage), stream))
+        if stage is not None:
+            err = variant(*args, STAGES.index(stage), stream)
+        else:
+            err = (k1_u8 if x.dtype == torch.uint8 else k1)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out
@@ -321,18 +364,25 @@ def yolo_front(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
     """Layers 0-2 of the plate detector on letterboxed frames
     (B, H, W, 3) -> (B, H/4, W/4, 64).
 
-    A CUDA tensor launches the K1 kernel on the current stream (bf16,
-    contiguous, H % 32 == 0, W % 64 == 0, a pack whose ``bf16_exact`` is
-    True; anything else raises) and adds one to ``yolo_front.launches``; a
-    CPU tensor takes :func:`front_plain`."""
+    A CUDA tensor launches the K1 kernel on the current stream (contiguous
+    and 16-byte aligned, H % 32 == 0, W % 64 == 0, a pack whose
+    ``bf16_exact`` is True; anything else raises): bf16 frames its bf16
+    instance, counted in ``yolo_front.launches``; uint8 frames (with a pack
+    made at ``input_scale=1/255``) its uint8 instance, counted in
+    ``yolo_front.launches_u8``; the output is bf16.  A CPU tensor takes
+    :func:`front_plain`."""
     if x.device.type == "cpu":
         return front_plain(x, packed)
     out = _launch(x, packed, "yolo_front")
-    yolo_front.launches += 1
+    if x.dtype == torch.uint8:
+        yolo_front.launches_u8 += 1
+    else:
+        yolo_front.launches += 1
     return out
 
 
 yolo_front.launches = 0
+yolo_front.launches_u8 = 0
 
 
 def front_stage(x: Tensor, packed: Dict[str, Tensor], stage: str) -> Tensor:
@@ -355,10 +405,12 @@ def front_stage(x: Tensor, packed: Dict[str, Tensor], stage: str) -> Tensor:
 front_stage.launches = dict.fromkeys(STAGES, 0)
 
 
-def front_work(batch: int, h: int, w: int) -> Tuple[int, int]:
+def front_work(batch: int, h: int, w: int,
+               in_bytes: int = 2) -> Tuple[int, int]:
     """(floating-point operations, bytes) the front end needs for a batch:
     2 x multiply-adds of the six convolutions at their exact output sizes;
-    input and output read/written once, plus the packed fp32 weights."""
+    input (``in_bytes`` a value: 2 for bf16, 1 for uint8 frames) and
+    output read/written once, plus the packed fp32 weights."""
     h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
     macs = (h2 * w2 * 9 * 12 * 32          # stem
             + h4 * w4 * 9 * 32 * 64        # down
@@ -368,7 +420,7 @@ def front_work(batch: int, h: int, w: int) -> Tuple[int, int]:
             + h4 * w4 * 64 * 64)           # cv3
     weights = 4 * (9 * 12 * 32 + 32 + 9 * 32 * 64 + 64 + 64 * 64 + 64
                    + 32 * 32 + 32 + 9 * 32 * 32 + 32 + 64 * 64 + 64)
-    nbytes = batch * (h * w * 3 * 2 + h4 * w4 * 64 * 2) + weights
+    nbytes = batch * (h * w * 3 * in_bytes + h4 * w4 * 64 * 2) + weights
     return 2 * macs * batch, nbytes
 
 

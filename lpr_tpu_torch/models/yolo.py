@@ -325,13 +325,23 @@ class YoloModel(torch.nn.Module):
             l.load(state, str(l.i))
         return self
 
-    def forward(self, x: Tensor, front=None, mid=None) -> List[Tensor]:
+    def forward(self, x: Optional[Tensor], front=None, mid=None,
+                packed: Optional[Tensor] = None) -> List[Tensor]:
         """``front``: packed weights from
         :func:`lpr_tpu_torch.kernels.yolo_front.front_pack` — layers 0-2 then
         run as the fused front kernel K1 (``lpr_tpu/models/yolo.py:975-986``);
         ``mid`` (with ``front``): packed weights from
         :func:`lpr_tpu_torch.kernels.yolo_mid.mid_pack` — layers 3-4 then
-        run as K3 (``:987-999``)."""
+        run as K3 (``:987-999``).  ``packed`` (with ``front`` packed at
+        ``input_scale=1/255``): the letterboxed uint8 frames (B, H, W, 3)
+        (:func:`lpr_tpu_torch.ops.image.letterbox_host`), which K1 takes in
+        place of ``x`` (ignored, may be None), the counterpart of
+        ``apply(..., packed_frames=, packed_hw=)`` (``:938-986``)."""
+        if packed is not None:
+            if front is None:
+                raise ValueError("packed frames go through the fused front: "
+                                 "pass front as well")
+            x = packed
         if front is None:
             if mid is not None:
                 raise ValueError("the fused mid runs on the fused front's "

@@ -4,11 +4,20 @@ letterbox, oriented crop sampling and skew estimation.
 The JAX functions work on one image and are ``vmap``-ed by the pipeline;
 here the batch dimensions are written out.  Plate-level functions take
 frames ``(B, H, W, C)``, boxes ``(B, P, 4)`` and angles ``(B, P)``, and
-return ``(B, P, ...)``.
+return ``(B, P, ...)``.  Their small constant tables (the gray weights, the
+resize matrices, the letterbox pad) are built once per shape, dtype and
+device, as ordinary tensors even under inference mode, so a step uploads
+none after its first call (the precondition for capturing it as a CUDA
+graph).
+
+:func:`letterbox_host` is the host half of the packed-input path: numpy
+uint8 frames letterboxed into the detector's input, as the JAX package's
+``pack_front_frames_host`` and the native ``letterbox_into`` do it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -19,10 +28,15 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _gray_weights(dtype, device) -> Tensor:
+    return torch.tensor([0.299, 0.587, 0.114], dtype=dtype, device=device)
+
+
 def rgb_to_gray(x: Tensor) -> Tensor:
     """ITU-R BT.601 luma (OpenCV convention), (..., 3) -> (...)."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=x.dtype, device=x.device)
-    return x @ w
+    return x @ _gray_weights(x.dtype, x.device)
 
 
 def resize_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -46,16 +60,23 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.ascontiguousarray(w.T.astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _resize_matrix(n_in: int, n_out: int, dtype, device) -> Tensor:
+    """:func:`resize_weights` on ``device`` in ``dtype``, built once."""
+    return torch.from_numpy(resize_weights(n_in, n_out)).to(device, dtype)
+
+
 def resize_bilinear(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     """Bilinear resize of (..., H, W, C) with ``jax.image.resize``'s
     ``"linear"`` semantics (antialiased when shrinking)."""
     h, w = int(x.shape[-3]), int(x.shape[-2])
     oh, ow = out_hw
     if oh != h:
-        ry = torch.from_numpy(resize_weights(h, oh)).to(x.device, x.dtype)
+        ry = _resize_matrix(h, oh, x.dtype, x.device)
         x = torch.einsum("oh,...hwc->...owc", ry, x)
     if ow != w:
-        rx = torch.from_numpy(resize_weights(w, ow)).to(x.device, x.dtype)
+        rx = _resize_matrix(w, ow, x.dtype, x.device)
         x = torch.einsum("pw,...owc->...opc", rx, x)
     return x
 
@@ -85,9 +106,72 @@ def letterbox(x: Tensor, out_hw: Tuple[int, int],
     resized = x if (nh, nw) == (h, w) else resize_bilinear(x, (nh, nw))
     out = F.pad(resized, (0, 0, pad_left, ow - nw - pad_left,
                           pad_top, oh - nh - pad_top), value=fill)
-    pad = torch.tensor([pad_left, pad_top], dtype=torch.float32,
-                       device=x.device)
-    return out, float(gain), pad
+    return out, float(gain), letterbox_pad(pad_left, pad_top, x.device)
+
+
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def letterbox_pad(pad_left: int, pad_top: int, device) -> Tensor:
+    """The letterbox pad (2,) float32 = (pad_x, pad_y) on ``device``, built
+    once."""
+    return torch.tensor([pad_left, pad_top], dtype=torch.float32,
+                        device=device)
+
+
+def _resize_u8(frames: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """Bilinear resize of uint8 frames (B, h, w, 3) -> (B, nh, nw, 3): the
+    native ``letterbox_into``'s taps (``native/lpr_native.cc``): half-pixel
+    centres clamped at 0, the second tap clamped to the last pixel, the
+    weights in float32, horizontal then vertical, rounded with +0.5."""
+    _, h, w, _ = frames.shape
+
+    def taps(n_in, n_out):
+        f = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+        i0 = np.where(f < 0, 0, f.astype(np.int64))
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        wt = np.where(f < i0, 0.0, f - i0).astype(np.float32)
+        return i0, i1, wt
+
+    y0, y1, wy = taps(h, nh)
+    x0, x1, wx = taps(w, nw)
+    wx = wx[None, None, :, None]
+    one = np.float32(1.0)
+
+    def rows(ys):
+        r = frames[:, ys].astype(np.float32)
+        return r[:, :, x0] * (one - wx) + r[:, :, x1] * wx
+
+    wy = wy[None, :, None, None]
+    v = rows(y0) * (one - wy) + rows(y1) * wy + np.float32(0.5)
+    return v.astype(np.uint8)
+
+
+def letterbox_host(frames_u8: np.ndarray, det_hw: Tuple[int, int]
+                   ) -> np.ndarray:
+    """Letterbox uint8 frames (B, H, W, 3) on the host into the detector
+    input (B, oh, ow, 3) uint8, zero pad, with :func:`letterbox_geom`'s
+    geometry: the letterbox half of the JAX package's
+    ``pack_front_frames_host`` (``lpr_tpu/ops/pallas/yolo_front.py``) and
+    of the native ``letterbox_into``.  A pad-only letterbox (720p into
+    736x1280) is a row copy, byte for byte; a resize takes the native
+    bilinear taps (:func:`_resize_u8`).  The result is K1's own input
+    layout, NHWC, not the TPU kernel's quarter-grid planes."""
+    frames = np.asarray(frames_u8)
+    if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[3] != 3:
+        raise ValueError(f"expected uint8 frames (B, H, W, 3), got "
+                         f"{frames.dtype} {frames.shape}")
+    B, h, w, _ = frames.shape
+    oh, ow = det_hw
+    _, (nh, nw), (left, top) = letterbox_geom(h, w, det_hw)
+    out = np.empty((B, oh, ow, 3), np.uint8)
+    # zero only the pad: each byte is written once
+    out[:, :top] = 0
+    out[:, top + nh:] = 0
+    out[:, top:top + nh, :left] = 0
+    out[:, top:top + nh, left + nw:] = 0
+    out[:, top:top + nh, left:left + nw] = (
+        frames if (nh, nw) == (h, w) else _resize_u8(frames, nh, nw))
+    return out
 
 
 def sample_bilinear(img: Tensor, ys: Tensor, xs: Tensor) -> Tensor:

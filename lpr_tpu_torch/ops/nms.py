@@ -7,10 +7,16 @@ validity mask, batched over the leading dimension.  The JAX package picks
 candidates with ``approx_max_k(recall_target=0.98)``, which is exact top-k
 on the CPU; here it is ``torch.topk``.  Tied scores may be ordered
 differently, so the two packages agree on the kept set.
+
+The small constant tables (the decode grid, anchors and strides, the class
+index columns) are built once per shape, dtype and device and reused, so
+a step uploads no host table after its first call: the precondition for
+capturing the step as a CUDA graph (``pipeline/recognizer.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -100,7 +106,7 @@ def nms_batched(pred: Tensor, conf_thres: float = 0.25,
     cols = None
     cls_probs = pred[..., 5:].to(f32)
     if class_ids is not None:
-        cols = torch.tensor(class_ids, dtype=torch.long, device=pred.device)
+        cols = _class_cols(tuple(class_ids), pred.device)
         cls_probs = cls_probs[..., cols]
     top_scores, box_idx, cls_idx = _select(obj[..., None] * cls_probs, obj,
                                            conf_thres, pre_topk, multi_label,
@@ -112,13 +118,32 @@ def nms_batched(pred: Tensor, conf_thres: float = 0.25,
                                  iou_thres, max_det, agnostic)
 
 
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _class_cols(class_ids: Tuple[int, ...], device) -> Tensor:
+    """The class index tensor of ``class_ids`` on ``device``, built once."""
+    return torch.tensor(class_ids, dtype=torch.long, device=device)
+
+
 def _decode_constants(raws, strides, anchors, dtype, device):
     """Per-candidate grid xy, anchor wh (px) and stride, in the flatten
-    order of the eager decode: scale-major, then (na, ny, nx) row-major."""
+    order of the eager decode: scale-major, then (na, ny, nx) row-major;
+    built once per (level shapes, strides, anchors, dtype, device)."""
     anchors = np.asarray(anchors, np.float32)
+    return _decode_tables(tuple(tuple(int(s) for s in r.shape[1:4])
+                                for r in raws),
+                          tuple(float(s) for s in strides),
+                          anchors.shape, tuple(anchors.ravel().tolist()),
+                          dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _decode_tables(shapes, strides, anchor_shape, anchor_values, dtype,
+                   device):
+    anchors = np.asarray(anchor_values, np.float32).reshape(anchor_shape)
     gx_l, gy_l, anc_l, st_l = [], [], [], []
-    for l, r in enumerate(raws):
-        na, ny, nx = (int(s) for s in r.shape[1:4])
+    for l, (na, ny, nx) in enumerate(shapes):
         gy, gx = np.meshgrid(np.arange(ny, dtype=np.float32),
                              np.arange(nx, dtype=np.float32), indexing="ij")
         gx_l.append(np.broadcast_to(gx, (na, ny, nx)).reshape(-1))
@@ -153,7 +178,7 @@ def nms_from_raw(raws: Sequence[Tensor], strides: Sequence[float], anchors,
     grid, anc, stv = _decode_constants(raws, strides, anchors, cdtype, dev)
     cols = None
     if class_ids is not None:
-        cols = torch.tensor(class_ids, dtype=torch.long, device=dev)
+        cols = _class_cols(tuple(class_ids), dev)
         cls_cols = [r[..., 5:][..., cols] for r in raws]
     else:
         cls_cols = [r[..., 5:] for r in raws]

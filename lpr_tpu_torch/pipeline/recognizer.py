@@ -14,12 +14,21 @@ char NMS.  Only the small fixed-shape outputs go to the host, where
 The step keeps the JAX step's cast points: frames are cast to
 ``cfg.dtype`` and divided by 255, LPSR runs in ``cfg.dtype`` with a
 float32 output, the char model gets ``cfg.dtype``.
+
+With ``packed_input`` the host letterboxes the uint8 frames
+(:func:`lpr_tpu_torch.ops.image.letterbox_host`) and K1 reads them as
+uint8, 1/255 folded into its stem (the JAX package's host-packed input).
+With ``freeze_params`` (the default, as in the JAX package, where the
+frozen step is one XLA executable with the weights as constants) the
+device step runs on a card as one CUDA graph, captured at the first call
+of each input shape and replayed after the inputs are copied from pinned
+host memory into its static buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,13 +48,90 @@ Tensor = torch.Tensor
 PLATE_CLASS_IDS = (7, 8)  # square / rectangle license plate
 
 # The step's stages, in the order PlateRecognizer.step_raw runs them.
-STEP_STAGES = ("upload", "letterbox+norm", "plate detector", "plate NMS",
-               "top plates", "crop/deskew geometry", "LPSR", "OCR canvases",
-               "char OCR", "char NMS")
+# "host letterbox" does its work only with packed_input (and returns None
+# without it); the device step is "letterbox+norm" through "char NMS".
+STEP_STAGES = ("host letterbox", "upload", "letterbox+norm",
+               "plate detector", "plate NMS", "top plates",
+               "crop/deskew geometry", "LPSR", "OCR canvases", "char OCR",
+               "char NMS")
+
+# Eager runs of the device step on a side stream before a capture (cuDNN,
+# cuBLAS and the kernels' libraries initialise outside the graph).
+GRAPH_WARMUP = 2
 
 
 def _call(name: str, fn, *args):
     return fn(*args)
+
+
+def _kernel_counters():
+    """(function, attribute) of every launch count the device step can
+    move: K1's bf16 and uint8 instances, K3, K2."""
+    from lpr_tpu_torch.kernels.lpsr import lpsr_fused
+    from lpr_tpu_torch.kernels.yolo_front import yolo_front
+    from lpr_tpu_torch.kernels.yolo_mid import yolo_mid
+
+    return ((yolo_front, "launches"), (yolo_front, "launches_u8"),
+            (yolo_mid, "launches"), (lpsr_fused, "launches"))
+
+
+def _counts() -> Tuple[int, ...]:
+    return tuple(getattr(f, a) for f, a in _kernel_counters())
+
+
+def _add_counts(delta: Sequence[int]) -> None:
+    for (f, a), n in zip(_kernel_counters(), delta):
+        setattr(f, a, getattr(f, a) + n)
+
+
+def _clone(tree):
+    """A copy of a step output (dicts of tensors), on the same stream."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
+
+
+class _Staged:
+    """A static device buffer of one step input and two pinned host
+    buffers that feed it in turns: a host array is written into the pinned
+    buffer whose last copy has finished, then copied with
+    ``non_blocking=True``; a device tensor is copied directly."""
+
+    def __init__(self, shape, device: torch.device):
+        self.device = torch.empty(shape, dtype=torch.uint8, device=device)
+        self._host = [torch.empty(shape, dtype=torch.uint8,
+                                  pin_memory=True) for _ in range(2)]
+        self._done = [None, None]
+        self._turn = 0
+
+    def load(self, a) -> None:
+        if isinstance(a, torch.Tensor) and a.device.type == "cuda":
+            self.device.copy_(a)
+            return
+        i, self._turn = self._turn, 1 - self._turn
+        if self._done[i] is not None:
+            self._done[i].synchronize()
+        host = self._host[i]
+        if isinstance(a, torch.Tensor):
+            host.copy_(a)
+        else:
+            np.copyto(host.numpy(), a, casting="no")
+        self.device.copy_(host, non_blocking=True)
+        self._done[i] = torch.cuda.Event()
+        self._done[i].record()
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured device step: its graph, static inputs (frames and, with
+    packed_input, the letterboxed frames), outputs, and the kernel launches
+    it holds (:func:`_kernel_counters` order)."""
+
+    graph: Any
+    frames: _Staged
+    packed: Optional[_Staged]
+    out: Dict[str, Any]
+    launches: Tuple[int, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +165,21 @@ class PipelineConfig:
     # net end-to-end loss at the bench geometry.  Needs fused_front (whose
     # geometry K3 always takes); the recognizer raises without it.
     fused_mid: bool = False
+    # Run the device step (letterbox -> char NMS) on a card as one CUDA
+    # graph, captured at the first call of each frame shape and replayed:
+    # one graph launch and a few copies a step instead of thousands of
+    # launches (the counterpart of the JAX package's frozen-weights
+    # program).  A capture that fails raises.  On the CPU the eager step
+    # runs.  False runs the step eagerly on a card too, which is how to
+    # debug it stage by stage.
+    freeze_params: bool = True
+    # Host-letterboxed detector input: the host letterboxes the uint8
+    # frames into the detector's input (ops/image.py letterbox_host) and K1
+    # reads them as uint8 with 1/255 folded into its stem (the JAX
+    # package's host-packed input, whose TPU layout, the quarter-grid
+    # planes, is not carried over: the port's is K1's own NHWC input).
+    # Crops still come from the raw frames.  Needs fused_front.
+    packed_input: bool = False
 
 
 def _aspect_canvas(img: Tensor, canvas_hw: Tuple[int, int]) -> Tensor:
@@ -126,26 +227,50 @@ class PlateRecognizer:
         # would change them); bf16 is unaffected.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.plate_model = plate_model.to(self.device, cfg.dtype).eval()
-        self.char_model = char_model.to(self.device, cfg.dtype).eval()
-        self.lpsr_model = lpsr_model.to(self.device, cfg.dtype).eval()
-        self._front = None
         if cfg.fused_front:
-            from lpr_tpu_torch.kernels.yolo_front import front_geom, front_pack
+            from lpr_tpu_torch.kernels.yolo_front import front_geom
 
             front_geom(*cfg.det_hw)
             if self.device.type == "cuda" and cfg.dtype != torch.bfloat16:
                 raise ValueError("fused_front runs the bf16 K1 kernel on a "
                                  "card: use dtype=torch.bfloat16 or "
                                  "fused_front=False")
-            self._front = front_pack(self.plate_model)
+        if cfg.fused_mid and not cfg.fused_front:
+            raise ValueError("fused_mid runs on the fused front's output: "
+                             "set fused_front as well")
+        if cfg.packed_input and not cfg.fused_front:
+            raise ValueError("packed_input feeds the fused front's uint8 "
+                             "input: set fused_front as well")
+        self._graphs: Dict[Tuple[int, ...], _Graph] = {}
+        self.replace_models(plate_model, char_model, lpsr_model)
+
+    def replace_models(self, plate_model: Optional[YoloModel] = None,
+                       char_model: Optional[YoloModel] = None,
+                       lpsr_model: Optional[LPSR] = None) -> None:
+        """Swap in new models (None keeps the current one): they are moved
+        to the device and cast to ``cfg.dtype`` in place, K1, K3 and K2 are
+        packed anew, and the captured graphs, which hold the old packs, are
+        dropped (the counterpart of the JAX recognizer's ``params`` setter,
+        which rebuilds the frozen program)."""
+        cfg = self.cfg
+        if plate_model is not None:
+            self.plate_model = plate_model.to(self.device, cfg.dtype).eval()
+        if char_model is not None:
+            self.char_model = char_model.to(self.device, cfg.dtype).eval()
+        if lpsr_model is not None:
+            self.lpsr_model = lpsr_model.to(self.device, cfg.dtype).eval()
+        self._graphs.clear()
+        self._front = None
+        if cfg.fused_front:
+            from lpr_tpu_torch.kernels.yolo_front import front_pack
+
+            self._front = front_pack(
+                self.plate_model,
+                input_scale=1.0 / 255.0 if cfg.packed_input else 1.0)
         self._mid = None
         if cfg.fused_mid:
             from lpr_tpu_torch.kernels.yolo_mid import mid_pack
 
-            if not cfg.fused_front:
-                raise ValueError("fused_mid runs on the fused front's output:"
-                                 " set fused_front as well")
             self._mid = mid_pack(self.plate_model)
         # K2 on a card, its plain version on the CPU (kernels/lpsr.py), for
         # the configuration K2 takes; any other one runs LPSR.forward.
@@ -197,20 +322,47 @@ class PlateRecognizer:
         canv_long = _aspect_canvas(rgb, self.cfg.ocr_hw)
         return torch.where(is_long[:, None, None, None], canv_long, canv_sq)
 
+    def host_letterbox(self, frames) -> Optional[np.ndarray]:
+        """With ``packed_input``: the frames (numpy or tensor) letterboxed
+        on the host into K1's uint8 input (:func:`im.letterbox_host`, the
+        JAX step_raw's host pack); None otherwise."""
+        if not self.cfg.packed_input:
+            return None
+        if isinstance(frames, torch.Tensor):
+            frames = frames.cpu().numpy()
+        return im.letterbox_host(frames, self.cfg.det_hw)
+
     def _upload(self, frames) -> Tensor:
         """uint8 frames (numpy or tensor) on the device."""
         if isinstance(frames, np.ndarray):   # torch needs a writable array
             frames = torch.from_numpy(np.require(frames, requirements="W"))
         return frames.to(self.device)
 
-    def _letterbox(self, frames: Tensor):
-        """(frames in cfg.dtype / 255, letterboxed detector input, gain,
-        pad)."""
+    def _upload_inputs(self, frames, packed=None):
+        """The frames and, with ``packed_input``, the letterboxed frames on
+        the device."""
+        return (self._upload(frames),
+                None if packed is None else self._upload(packed))
+
+    def _letterbox(self, frames: Tensor, packed: Optional[Tensor] = None):
+        """(frames in cfg.dtype / 255, detector input, gain, pad).  The
+        detector input is the letterboxed frames in cfg.dtype, or with
+        ``packed_input`` the host-letterboxed uint8 ones as they came, and
+        gain and pad come from the letterbox geometry alone."""
         x = frames.to(self.cfg.dtype) / 255.0
+        if packed is not None:
+            fh, fw = int(frames.shape[1]), int(frames.shape[2])
+            gain, _, (pad_l, pad_t) = im.letterbox_geom(fh, fw,
+                                                        self.cfg.det_hw)
+            return x, packed, float(gain), im.letterbox_pad(pad_l, pad_t,
+                                                            x.device)
         lb, gain, pad = im.letterbox(x, self.cfg.det_hw, fill=0.0)
         return x, lb.contiguous(), gain, pad
 
     def _detect(self, lb: Tensor) -> List[Tensor]:
+        if lb.dtype == torch.uint8:
+            return self.plate_model(None, front=self._front, mid=self._mid,
+                                    packed=lb)
         return self.plate_model(lb, front=self._front, mid=self._mid)
 
     def _plate_nms(self, raws: List[Tensor]) -> Dict[str, Tensor]:
@@ -269,21 +421,49 @@ class PlateRecognizer:
                             multi_label=True, agnostic=True)
 
     @torch.inference_mode()
-    def step_raw(self, frames, run=None) -> Dict[str, Any]:
-        """The device step: uint8 frames (B, H, W, 3) (numpy or tensor) ->
-        dict of fixed-shape device tensors (``lpr_tpu``'s ``_step_impl``).
+    def step_raw(self, frames, packed=None, run=None) -> Dict[str, Any]:
+        """The step: uint8 frames (B, H, W, 3) (numpy or tensor) -> dict of
+        fixed-shape device tensors (``lpr_tpu``'s ``step_raw`` and
+        ``_step_impl``).  With ``packed_input``, ``packed`` is the frames
+        letterboxed by :meth:`host_letterbox`, which runs here when it is
+        None.
 
         The step is the stages of :data:`STEP_STAGES`, in that order.  With
         ``run``, each stage is called as ``run(name, fn, *args)``, which
         must return ``fn(*args)``: how
         ``lpr_tpu_torch/tools/profile_stages.py`` measures each stage on
-        the input the step gave it."""
+        the input the step gave it; the step then runs eagerly.  Without
+        it, on a card with ``freeze_params``, the device step is one CUDA
+        graph replay (:meth:`_frozen_step`), and the outputs are copies
+        that the next step does not overwrite."""
+        if packed is not None and not self.cfg.packed_input:
+            raise ValueError("letterboxed frames go to K1's uint8 input: set "
+                             "PipelineConfig(packed_input=True)")
+        if run is None and self.cfg.freeze_params and \
+                self.device.type == "cuda":
+            if self.cfg.packed_input and packed is None:
+                packed = self.host_letterbox(frames)
+            return self._frozen_step(frames, packed)
+        return self.step_eager(frames, packed, run)
+
+    @torch.inference_mode()
+    def step_eager(self, frames, packed=None, run=None) -> Dict[str, Any]:
+        """:meth:`step_raw` with every stage launched from the host, as
+        ``freeze_params=False`` runs it."""
         run = run or _call
+        if packed is None:
+            packed = run("host letterbox", self.host_letterbox, frames)
+        x, pk = run("upload", self._upload_inputs, frames, packed)
+        return self._device_step(x, pk, run)
+
+    def _device_step(self, x: Tensor, pk: Optional[Tensor],
+                     run: Callable = _call) -> Dict[str, Any]:
+        """The device stages, "letterbox+norm" to "char NMS", on the
+        uploaded frames (and letterboxed frames): what a graph captures."""
         cfg = self.cfg
-        x = run("upload", self._upload, frames)
         B, fh, fw = int(x.shape[0]), int(x.shape[1]), int(x.shape[2])
         P = cfg.max_plates
-        x, lb, gain, pad = run("letterbox+norm", self._letterbox, x)
+        x, lb, gain, pad = run("letterbox+norm", self._letterbox, x, pk)
         raws = run("plate detector", self._detect, lb)
         det = run("plate NMS", self._plate_nms, raws)
         sel_boxes, sel_scores, sel_classes, top_areas = run(
@@ -312,6 +492,58 @@ class PlateRecognizer:
             "chars_orig": split(0, n_orig) if cfg.ocr_on_original else None,
             "chars_sr": split(n_orig, n_orig + B * P),
         }
+
+    def _frozen_step(self, frames, packed) -> Dict[str, Any]:
+        """The device step as a replay of the graph captured for this frame
+        shape (captured here at its first call): the inputs go into the
+        graph's static buffers, the graph replays on the current stream,
+        the kernels it holds are added to their launch counts, and the
+        outputs are copied out of the graph's pool."""
+        key = tuple(int(n) for n in frames.shape)
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(frames, packed)
+        g.frames.load(frames)
+        if g.packed is not None:
+            g.packed.load(packed)
+        g.graph.replay()
+        _add_counts(g.launches)
+        return _clone(g.out)
+
+    def _capture(self, frames, packed) -> _Graph:
+        """Capture the device step for ``frames``' shape: static input
+        buffers loaded with these inputs, :data:`GRAPH_WARMUP` eager runs
+        on a side stream, then one run captured with ``torch.cuda.graph``.
+        The kernels' launch counts move only at capture; the counts the
+        graph holds are recorded for its replays and the capture's own
+        are taken back.  Any failure raises.  The kernels' launchers go to
+        the capturing stream (``torch.cuda.current_stream()``), and what
+        they call at every launch, ``cudaFuncSetAttribute`` and K2's
+        cluster launch, captures (checked on an H100)."""
+        dev = self.device
+        fr = _Staged(tuple(frames.shape), dev)
+        pk = None
+        if self.cfg.packed_input:
+            pk = _Staged(tuple(packed.shape), dev)
+            pk.load(packed)
+        fr.load(frames)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                self._device_step(fr.device, None if pk is None
+                                  else pk.device)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = _counts()
+        try:
+            with torch.cuda.graph(graph):
+                out = self._device_step(fr.device, None if pk is None
+                                        else pk.device)
+        finally:
+            held = tuple(a - b for a, b in zip(_counts(), before))
+            _add_counts(tuple(-n for n in held))
+        return _Graph(graph, fr, pk, out, held)
 
     def recognize(self, frames) -> List[List[Dict[str, Any]]]:
         """frames: (B, H, W, 3) uint8 RGB.  Per-frame lists of plate dicts

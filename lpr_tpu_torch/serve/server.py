@@ -4,9 +4,14 @@
 Requests enqueue single frames; a collector thread forms batches up to
 ``max_batch`` within ``max_delay_ms`` (Triton dynamic-batching semantics),
 pads to ``max_batch`` so every step sees one batch shape, runs the
-recognizer's device step and resolves per-request futures.  The step of
-batch N+1 is launched before batch N's results are copied to the host and
-assembled (a one-deep pipeline).
+recognizer's device step and resolves per-request futures.  The step is
+the recognizer's ``step_raw``: with ``freeze_params`` (the default) one
+CUDA graph replay, captured at the first batch (one shape, so one graph),
+whose outputs are copies that the next replay leaves alone; with
+``packed_input`` its host letterbox runs here in the collector, before the
+batch goes to the device (as the JAX server's step_raw packs).  The step
+of batch N+1 is launched before batch N's results are copied to the host
+and assembled (a one-deep pipeline).
 
 The collector is a daemon thread.  :meth:`InferenceServer.stop` joins it
 with a timeout and fails every request still queued, so no future is left

@@ -7,8 +7,10 @@
 - :func:`host_ms` — wall-clock time per call around a run of calls, ended
   by ``torch.cuda.synchronize()``: what a host-bound caller waits.
 - :func:`profile_window` — one ``torch.profiler`` window over a run of
-  calls: device-busy ms per call (the sum of kernel times), kernel
-  launches per call, and the kernels by device time.
+  calls: device-busy ms per call (the sum of kernel times), the kernels
+  (and copies) the device executed per call, the launches the host issued
+  per call (kernel and graph launches, copies, memsets: one graph replay
+  executes many kernels), and the kernels by device time.
 - :func:`bound_ms` — the least time for a given work on an H100.
 """
 
@@ -23,6 +25,12 @@ import torch
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# The host link of an H100 SXM: PCIe 5.0 x16, 64 GB/s each way (the data
+# sheet's 128 GB/s counts both directions).
+PCIE_BYTES_S = 64e9
+# Host-side runtime and driver calls that put work on a stream.
+_HOST_LAUNCH = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+                "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
 
 
 def card(device: torch.device) -> str:
@@ -82,16 +90,20 @@ def host_ms(fn: Callable[[], object], calls: int,
 
 
 class Window:
-    """What one profiled run of calls saw on the device: ``busy_ms`` and
-    ``launches`` per call (None when the profiler saw no device event, as
-    on the CPU), and ``kernels``: (device ms per call, launches per call,
-    name), most device time first."""
+    """What one profiled run of calls saw: ``busy_ms`` and ``launches`` (the
+    kernels and copies the device executed) per call, None when the
+    profiler saw no device event, as on the CPU; ``host_launches`` per
+    call, the launch, graph-launch, copy and memset calls the host made
+    (None likewise); and ``kernels``: (device ms per call, executions per
+    call, name), most device time first."""
 
     def __init__(self, busy_ms: Optional[float], launches: Optional[float],
-                 kernels: List[Tuple[float, float, str]]):
+                 kernels: List[Tuple[float, float, str]],
+                 host_launches: Optional[float] = None):
         self.busy_ms = busy_ms
         self.launches = launches
         self.kernels = kernels
+        self.host_launches = host_launches
 
 
 _MARK = "lpr_tpu_torch.profile_window"
@@ -128,22 +140,26 @@ def profile_window(fn: Callable[[], object], calls: int,
                 fn()
             sync(device)
     evts = prof.events()
-    t0 = min(e.time_range.start for e in evts
-             if e.name == _MARK and e.device_type == DeviceType.CPU
-             ) - 1e6 * _GAP_S / 2
+    mark = min(e.time_range.start for e in evts
+               if e.name == _MARK and e.device_type == DeviceType.CPU)
+    t0 = mark - 1e6 * _GAP_S / 2
     by_name = {}
+    host = 0
     for e in evts:
         if (e.device_type == DeviceType.CUDA and e.time_range.start >= t0
                 and e.name != _MARK
                 and not getattr(e, "is_user_annotation", False)):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        elif (e.device_type == DeviceType.CPU and e.time_range.start >= mark
+              and e.name.startswith(_HOST_LAUNCH)):
+            host += 1
     if not by_name:
         return Window(None, None, [])
     kernels = sorted(((us / 1e3 / calls, n / calls, name)
                       for name, (us, n) in by_name.items()), reverse=True)
     return Window(sum(k[0] for k in kernels), sum(k[1] for k in kernels),
-                  kernels)
+                  kernels, host / calls)
 
 
 def fmt(v: Optional[float], spec: str = ".3f") -> str:

@@ -233,8 +233,11 @@ def build(kernel: str, names: Sequence[str], parent: Path = None
     from lpr_tpu_torch.kernels import yolo_mid as km
 
     source, variants = KERNELS[kernel]
-    bind, entry = ((kf.bind, "front_kernelILi3E") if kernel == "front"
-                   else (km.bind, "mid_kernel"))
+    # K1's bf16 instance front_kernel<FULL, bf16> (front_kernel<FULL> in a
+    # source older than the uint8 instance), K3's mid_kernel
+    bind, entries = ((kf.bind, ("front_kernelILi3E13__nv_bfloat16",
+                                "front_kernelILi3EEv"))
+                     if kernel == "front" else (km.bind, ("mid_kernel",)))
     out_dir = _build.BUILD_DIR / "variants"
     texts = sources(kernel)
     jobs = {}
@@ -261,7 +264,7 @@ def build(kernel: str, names: Sequence[str], parent: Path = None
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lines = log.splitlines()
         at = [i for i, ln in enumerate(lines)
-              if "Compiling entry" in ln and entry in ln]
+              if "Compiling entry" in ln and any(e in ln for e in entries)]
         report = [ln.strip() for ln in lines[at[0] + 1:at[0] + 4]
                   if "spill" in ln or "Used" in ln] if at else []
         libs[name] = (bind(ctypes.CDLL(str(so))), report)

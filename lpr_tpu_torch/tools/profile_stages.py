@@ -21,7 +21,16 @@ through ``lpsr_plain``.  For each row:
 
 A stage whose host time is well above its device-busy time is bound by the
 host issuing its kernels.  The sum of the stages and the step's
-unaccounted rest close the table.  Run from the repo root.
+unaccounted rest close the table.  The step row is the step as the
+recognizer runs it: one CUDA graph replay on a card (``freeze_params``,
+the default), where the stages, each measured alone, are launched op by
+op; :func:`eager_step_row` measures the whole step op by op beside it,
+and :func:`frozen_rows` each stage again as the frozen step runs it: a
+device stage captured alone as a CUDA graph and replayed, the upload as
+the graph's pinned staging copy.  ``--packed`` runs it on host-letterboxed
+frames (``packed_input``), whose "host letterbox" stage does its work on
+the host.
+Run from the repo root.
 """
 
 from __future__ import annotations
@@ -41,8 +50,9 @@ Stage = Tuple[str, Callable[[], object]]
 
 
 def build_recognizer(device, dtype=torch.bfloat16, det_hw=DET_HW,
-                     fused_mid=False):
-    """The production recognizer on the repo's checkpoints."""
+                     fused_mid=False, **cfg_kw):
+    """The production recognizer on the repo's checkpoints; ``cfg_kw`` are
+    further :class:`PipelineConfig` fields."""
     from lpr_tpu_torch.models.lpsr import load_lpsr
     from lpr_tpu_torch.models.yolo import (load_char_ocr_npz,
                                            load_plate_detector)
@@ -54,7 +64,8 @@ def build_recognizer(device, dtype=torch.bfloat16, det_hw=DET_HW,
         load_plate_detector("checkpoints/plate_det640.npz", device), char,
         load_lpsr("checkpoints/lpsr_synth_glare/best_model.npz",
                   device=device),
-        PipelineConfig(det_hw=det_hw, dtype=dtype, fused_mid=fused_mid),
+        PipelineConfig(det_hw=det_hw, dtype=dtype, fused_mid=fused_mid,
+                       **cfg_kw),
         char_names=names, device=device)
 
 
@@ -80,12 +91,16 @@ def alternatives(rec, stages: List[Stage]) -> List[Stage]:
 
     args = {name: fn.args for name, fn in stages}
     lb, = args["plate detector"]
+    packed = None
+    if lb.dtype == torch.uint8:          # packed_input: the letterboxed bytes
+        packed, lb = lb, lb.to(rec.cfg.dtype) / 255.0
     rows = [("plate detector, plain layers",
              functools.partial(rec.plate_model, lb))]
     if rec._front is not None:
         mid = rec._mid if rec._mid is not None else mid_pack(rec.plate_model)
         rows.append(("plate detector, K1 + K3", functools.partial(
-            rec.plate_model, lb, front=rec._front, mid=mid)))
+            rec.plate_model, lb if packed is None else None,
+            front=rec._front, mid=mid, packed=packed)))
     if rec._lpsr is not None:
         long_img, = args["LPSR"]
         sh, sw = rec.cfg.sr_hw
@@ -97,13 +112,15 @@ def alternatives(rec, stages: List[Stage]) -> List[Stage]:
 
 class Row:
     """One measured row: host ms per call (best and every round),
-    device-busy ms and launches per call (None where not measured)."""
+    device-busy ms, kernels executed and host launches per call (None
+    where not measured)."""
 
     def __init__(self, name: str, host: List[float], win: _timing.Window):
         self.name = name
         self.host = host
         self.busy_ms = win.busy_ms
         self.launches = win.launches
+        self.host_launches = win.host_launches
 
     @property
     def host_ms(self) -> float:
@@ -112,7 +129,8 @@ class Row:
     def line(self) -> str:
         return (f"{self.name:32s} {self.host_ms:9.3f} "
                 f"{_timing.fmt(self.busy_ms):>12s} "
-                f"{_timing.fmt(self.launches, '.1f'):>12s}   "
+                f"{_timing.fmt(self.launches, '.1f'):>12s} "
+                f"{_timing.fmt(self.host_launches, '.1f'):>12s}   "
                 f"{[round(h, 3) for h in self.host]}")
 
 
@@ -140,10 +158,59 @@ def split_rows(rec, frames, calls: int, rounds: int
     return step, rows, alt
 
 
+def _graphed(fn: Callable[[], object], device) -> Callable[[], object]:
+    """fn captured alone as a CUDA graph (after a warm-up on a side
+    stream); returns the graph's replay."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.inference_mode():
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+    return graph.replay
+
+
+def frozen_rows(rec, frames, stages: List[Stage], calls: int,
+                rounds: int) -> List[Row]:
+    """The stages as the frozen step runs them (card only; [] on the CPU):
+    the host letterbox as it is, the upload as the captured step's pinned
+    staging copies (``rec.step_raw`` has captured its graph for these
+    frames), every device stage captured alone as a CUDA graph and
+    measured by its replays."""
+    if rec.device.type != "cuda":
+        return []
+    g = rec._graphs[tuple(int(n) for n in frames.shape)]
+    rows = []
+    for name, fn in stages:
+        if name == "host letterbox":
+            thunk = fn
+        elif name == "upload":
+            fr, pk = fn.args
+
+            def thunk(fr=fr, pk=pk):
+                g.frames.load(fr)
+                if g.packed is not None:
+                    g.packed.load(pk)
+        else:
+            thunk = _graphed(fn, rec.device)
+        rows.append(measure(name, thunk, calls, rounds, rec.device))
+    return rows
+
+
+def eager_step_row(rec, frames, calls: int, rounds: int) -> Row:
+    """The whole step launched op by op (``step_eager``), to set beside the
+    step row where that is a graph replay."""
+    return measure("step, eager", functools.partial(rec.step_eager, frames),
+                   calls, rounds, rec.device)
+
+
 def report(step: Row, rows: List[Row], alt: List[Row]) -> List[str]:
     """The table's lines."""
     head = (f"{'stage':32s} {'host ms':>9s} {'device ms':>12s} "
-            f"{'launches':>12s}   host ms of each round")
+            f"{'launches':>12s} {'host calls':>12s}   host ms of each round")
     lines = [head, step.line()]
     lines += ["  " + r.line() for r in rows]
 
@@ -178,6 +245,8 @@ def main(argv=None) -> int:
     ap.add_argument("--det-hw", type=int, nargs=2, default=DET_HW)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
+    ap.add_argument("--packed", action="store_true",
+                    help="packed_input: host-letterboxed uint8 frames")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -186,17 +255,29 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     rec = build_recognizer(dev, getattr(torch, args.dtype),
-                           tuple(args.det_hw))
+                           tuple(args.det_hw), packed_input=args.packed)
     frames = synth_frames(args.batch, tuple(args.frame_hw), seed=0)
     step, rows, alt = split_rows(rec, frames, args.calls, args.rounds)
+    alt.insert(0, eager_step_row(rec, frames, args.calls, args.rounds))
+    frozen = frozen_rows(rec, frames, stage_split(rec, frames)[1],
+                         args.calls, args.rounds)
     print(f"card: {_timing.card(dev)}")
     print(f"step by stage: batch {args.batch}, frames "
           f"{args.frame_hw[0]}x{args.frame_hw[1]}, det "
-          f"{args.det_hw[0]}x{args.det_hw[1]}, {args.dtype}; per call, "
+          f"{args.det_hw[0]}x{args.det_hw[1]}, {args.dtype}"
+          f"{', packed input' if args.packed else ''}; step "
+          f"{'frozen' if dev.type == 'cuda' else 'eager'}; "
+          f"launches = kernels executed, host calls = launches issued; "
+          f"per call, "
           f"best of {args.rounds} rounds of {args.calls} calls; "
           f"{1e3 * args.batch / step.host_ms:.3f} frames/s at the best step")
     for line in report(step, rows, alt):
         print(line)
+    if frozen:
+        print("the stages as the frozen step runs them (each device stage "
+              "captured alone as a CUDA graph; the upload through pinned "
+              "staging):")
+        print("\n".join("  " + r.line() for r in frozen))
     return 0
 
 

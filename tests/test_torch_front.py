@@ -189,6 +189,46 @@ def test_front_pack_bf16_exact_flag(packed, packed_bf16):
     assert packed.bf16_exact is False
 
 
+@pytest.fixture(scope="module")
+def packed_bf16_u8():
+    """The bf16 detector's pack for uint8 frames: 1/255 folded into the
+    stem in float32, the product rounded to bf16."""
+    model = tyolo.load_plate_detector(PLATE, device="cpu")
+    return kf.front_pack(model.to(torch.bfloat16), input_scale=1.0 / 255.0)
+
+
+def test_front_pack_folded_stem_fragments_give_back_the_rounded_weights(
+        packed_bf16, packed_bf16_u8):
+    """The folded pack stores w0 as bf16(float32(w0) * float32(1/255)),
+    and its B fragments give that rounded w0 back bit for bit (and every
+    other layer's weights and the biases unchanged): the kernel's uint8
+    instance and front_plain read the same stem."""
+    w0 = packed_bf16["w0"]
+    folded = (w0 * torch.tensor(1.0 / 255.0, dtype=torch.float32)
+              ).to(torch.bfloat16).float()
+    assert torch.equal(packed_bf16_u8["w0"], folded)
+    assert not torch.equal(folded, w0)
+    mats, biases = _unpacked(packed_bf16_u8)
+    assert torch.equal(mats["w0"], kf.gemm_matrix("w0", folded))
+    for key, _, _ in kf.MMA_LAYERS[1:]:
+        assert torch.equal(packed_bf16_u8[key], packed_bf16[key]), key
+        assert torch.equal(mats[key], kf.gemm_matrix(key,
+                                                     packed_bf16[key])), key
+    for key in kf.BIAS_KEYS:
+        assert torch.equal(biases[key], packed_bf16[key])
+
+
+def test_front_pack_bf16_exact_flag_after_the_fold(packed_bf16_u8):
+    """bf16_exact is decided on the model's own weights, before the fold:
+    True for the bf16 detector packed at input_scale=1/255, False for the
+    float32 one, whose folded stem stays unrounded."""
+    assert packed_bf16_u8.bf16_exact is True
+    assert packed_bf16_u8.dtype == torch.bfloat16
+    p32 = kf.front_pack(tyolo.load_plate_detector(PLATE, device="cpu"),
+                        input_scale=1.0 / 255.0)
+    assert p32.bf16_exact is False and p32.dtype == torch.float32
+
+
 def _emulate_front(x, packed):
     """K1's tile pipeline (csrc/yolo_front.cu) in float32: per 8x16 output
     tile, each layer as M x K @ K x N with the kernel's row and k-step

@@ -15,10 +15,11 @@ import torch
 from lpr_tpu_torch.kernels.yolo_front import front_pack
 from lpr_tpu_torch.kernels.yolo_mid import mid_pack
 from lpr_tpu_torch.models import yolo as tyolo
+from lpr_tpu_torch import bench
 from lpr_tpu_torch.pipeline.recognizer import STEP_STAGES, to_host
-from lpr_tpu_torch.tools import (bench_convs, bench_sr_convs, prof_pipeline,
-                                 probe_front_stages, profile_detector_layers,
-                                 profile_stages)
+from lpr_tpu_torch.tools import (bench_convs, bench_pack, bench_sr_convs,
+                                 prof_pipeline, probe_front_stages,
+                                 profile_detector_layers, profile_stages)
 from lpr_tpu_torch.tools.profile_detector_layers import prefix_forward
 
 from . import torch_ref
@@ -168,6 +169,9 @@ TINY = {
                     "--div", "8"],
     "bench_sr_convs": ["--n", "1", "--iters", "1", "--rounds", "1",
                        "--div", "4"],
+    "bench": ["--frame-hw", "60", "120", "--det-w", "128"],
+    "bench_pack": ["--batch", "1", "--iters", "1", "--rounds", "1",
+                   "--frame-hw", "60", "120", "--det-hw", "64", "128"],
 }
 EXPECT = {
     "probe_front_stages": ["front[dma ]", "front[stem]", "front[down]",
@@ -180,6 +184,12 @@ EXPECT = {
                        "char OCR forward (2 canvases, 32^2)",
                        "dense 3x3  80->16 @8x48", "lff   1x1  96->32",
                        "one RDB (4 dense + lff, composed)"],
+    "bench": ['"metric": "e2e_detect_sr_ocr_frames_per_sec_per_chip"',
+              '"value": null', '"flops_per_frame": ', '"mfu_pct": null',
+              '"packed_input": true', '"det_hw": [64, 128]'],
+    "bench_pack": ["host letterbox (ms per frame)",
+                   "upload, pinned (uint8 letterbox)", "K1 uint8",
+                   "letterbox+norm + K1 bf16"],
 }
 
 
@@ -189,9 +199,11 @@ def test_tool_main_runs_on_cpu(tool, monkeypatch, capsys):
            "profile_stages": profile_stages,
            "profile_detector_layers": profile_detector_layers,
            "prof_pipeline": prof_pipeline, "bench_convs": bench_convs,
-           "bench_sr_convs": bench_sr_convs}[tool]
+           "bench_sr_convs": bench_sr_convs, "bench": bench,
+           "bench_pack": bench_pack}[tool]
     for k, v in {"PROF_DET_HW": "64", "PROF_BATCH": "1", "PROF_STEPS": "1",
-                 "PROF_STAGE": "det_nms"}.items():
+                 "PROF_STAGE": "det_nms", "BENCH_BATCH": "1",
+                 "BENCH_STEPS": "2", "BENCH_REPS": "1"}.items():
         monkeypatch.setenv(k, v)
     assert mod.main(TINY[tool] + ["--device", "cpu"]) == 0
     out = capsys.readouterr().out
