@@ -16,7 +16,11 @@ Phases, each printing one line with its elapsed seconds:
    bf16 stages and the uint8 FULL instance) and in K3's mid_kernel (fails
    if lpsr_kernel<bf16>, front_kernel<FULL, bf16>, front_kernel<FULL,
    uint8_t> or mid_kernel has none), and nvcc's registers and spills for
-   the uint8 instance and mid_kernel.
+   the uint8 instance and mid_kernel.  Then the host libraries with g++
+   (csrc/host_letterbox.cc always; csrc/host_decode.cc, which links
+   libjpeg and libpng, where g++ finds their headers, else one line says
+   that the decode calls are not driven and why), each g++ command
+   printed.
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes (K1 on frames in bf16 and on uint8 frames with
    1/255 folded into its stem, K2 on 24 plate crops in bf16 and float32,
@@ -61,16 +65,30 @@ Phases, each printing one line with its elapsed seconds:
    frozen step runs it (a device stage captured alone as a CUDA graph).
 7. serve   — InferenceServer(max_batch=8) answers 16 requests through the
    frozen step; the answers must equal the recognizer's own; then stop().
-8. bench   — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
+   Then, each path with the launch counts set to 0 before it and read
+   after it (K1 and K2 must have launched; K1's uint8 instance in the
+   packed pool), each answer equal to recognize() on the same frames: the
+   8 frames as PNG files through submit_path and submit_paths and as bytes
+   through submit_bytes (lossless, at the served shape), one PNG at
+   360x640 through submit_bytes (against recognize() on the port's Pillow
+   bilinear resample of it, centred), the device-resident pool (preload,
+   submit_ref) of the default recognizer and of the packed_input one, and
+   HttpFrontend on 127.0.0.1 with every route (health, infer, infer_batch,
+   stats).
+8. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
+   requests, max_batch 8), with frames, with the pool, over HTTP and, where
+   host_decode built, with files: its JSON lines (client frames/s, latency
+   p50/p99, mean batch, the card).
+9. bench   — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
    with BENCH_PACKED=1 and =0: its JSON lines (frames/s, flops_per_frame,
    mfu_pct against the bf16 peak, the card).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; a graph replay adds to each count the launches the
 graph holds.  The second-to-last line is one JSON object {"kernels":
-[...]} (launch counts of K1's bf16 instance and K2 from the serve phase,
-the main path a user drives, of K1's uint8 instance from the packed_input
-slice, of K3 from the fused_mid slice, of each K4 variant from the probe
+[...]} (launch counts of K1's bf16 instance and K2 from the serve phase's
+16 requests, the main path a user drives, of K1's uint8 instance from the
+packed_input slice, of K3 from the fused_mid slice, of each K4 variant from the probe
 phase); the last line is {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero before that line.  A watchdog turns a hang into
 a failing exit with a traceback.
@@ -79,6 +97,7 @@ a failing exit with a traceback.
 from __future__ import annotations
 
 import faulthandler
+import io
 import json
 import os
 import subprocess
@@ -215,7 +234,24 @@ def main() -> int:
           flush=True)
     if k3_hmma < 1:
         raise AssertionError("no HMMA in mid_kernel")
-    phase("build", t, f"; {sorted(libs)}; dynamic smem per block {smem} B")
+    # The host libraries (g++): the letterbox of the packed input always;
+    # the image decode only where g++ finds libjpeg's and libpng's headers
+    # (without them it cannot build, and its calls are not driven).
+    decode_missing = _build.missing_headers("host_decode")
+    host_names = ["host_letterbox"] + (["host_decode"] if not decode_missing
+                                       else [])
+    for n in host_names:
+        print(f"g++[{n}]: {' '.join(_build.host_command(n, _build._target(n, '.cc')))}",
+              flush=True)
+    host_libs = _build.build_host(host_names)
+    if decode_missing:
+        print(f"host_decode: not built, and the decode calls (submit_path, "
+              f"submit_paths, submit_bytes, bench_serving --files) are not "
+              f"driven: g++ finds no {' or '.join(decode_missing)} on this "
+              f"machine (libjpeg's and libpng's development files are not "
+              f"installed)", flush=True)
+    phase("build", t, f"; {sorted(libs)} + {sorted(host_libs)}; dynamic "
+          f"smem per block {smem} B")
 
     def counts_to_zero():
         kf.yolo_front.launches = 0
@@ -671,7 +707,7 @@ def main() -> int:
         "default", lambda r, lb: r.plate_model.forward_from(
             kf.front_plain(lb, r._front), 3), ("yolo_front", "lpsr"))
     # packed_input: the host letterbox, K1's uint8 instance, K2.
-    _, _, packed_counts = drive(
+    rec_packed, results_packed, packed_counts = drive(
         "packed_input", lambda r, lb: r.plate_model.forward_from(
             kf.front_plain(lb, r._front), 3), ("yolo_front_u8", "lpsr"),
         packed_input=True)
@@ -727,9 +763,134 @@ def main() -> int:
 
     if [key(r) for r in served] != [key(r) for r in results + results]:
         raise AssertionError("served results differ from recognize()")
-    phase("serve", t, f"; {len(served)} requests, launches {serve_counts}")
 
-    # ---- 8. bench -------------------------------------------------------
+    import tempfile
+    import urllib.request
+
+    from lpr_tpu_torch import native
+    from lpr_tpu_torch.serve.http import HttpFrontend
+    from lpr_tpu_torch.tools.synth import png_bytes, write_png
+
+    def serve_path(label, r, need, want, drive_server):
+        """One served path: counts to 0, a server at the served shape,
+        drive_server(srv) -> answers, stop(), counts read; the answers
+        must equal ``want`` and every kernel in ``need`` must have
+        launched."""
+        counts_to_zero()
+        srv = InferenceServer(r, ServeConfig(max_batch=BATCH,
+                                             max_delay_ms=20.0,
+                                             frame_hw=FRAME_HW)).start()
+        try:
+            got = drive_server(srv)
+        finally:
+            srv.stop(timeout=60)
+        torch.cuda.synchronize()
+        c = counts()
+        if min(c[k] for k in need) < 1:
+            raise AssertionError(f"serve {label} did not launch {need}: {c}")
+        if [key(x) for x in got] != [key(x) for x in want]:
+            raise AssertionError(f"serve {label}: answers differ from "
+                                 f"recognize()")
+        print(f"serve {label}: {len(got)} answers equal to recognize(); "
+              f"launches {c}; stats {json.dumps(srv.stats.summary())}",
+              flush=True)
+        return c
+
+    def results_of(futs):
+        return [f.result(timeout=300) for f in futs]
+
+    path_counts = {}
+    if decode_missing:
+        print(f"serve files and bytes: not driven (no "
+              f"{' or '.join(decode_missing)} on this machine)", flush=True)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = [os.path.join(tmp, f"frame{i}.png")
+                     for i in range(BATCH)]
+            for p_, f_ in zip(paths, frames):
+                write_png(p_, f_)
+            path_counts["files"] = serve_path(
+                "submit_path + submit_paths (8 PNG files each)", rec,
+                ("yolo_front", "lpsr"), results + results,
+                lambda srv: results_of([srv.submit_path(p_) for p_ in paths]
+                                       + srv.submit_paths(paths)))
+        path_counts["bytes"] = serve_path(
+            "submit_bytes (8 PNG)", rec, ("yolo_front", "lpsr"), results,
+            lambda srv: results_of([srv.submit_bytes(png_bytes(f_))
+                                    for f_ in frames]))
+        # an image of another shape: fitted with Pillow's bilinear
+        # resample (the port's C copy), centred, as the JAX server does
+        small = synth_frames(1, (360, 640), SEED + 1)[0]
+        r_ = min(FRAME_HW[0] / 360, FRAME_HW[1] / 640)
+        nh_, nw_ = round(360 * r_), round(640 * r_)
+        top_, left_ = (FRAME_HW[0] - nh_) // 2, (FRAME_HW[1] - nw_) // 2
+        fitted = np.zeros((*FRAME_HW, 3), np.uint8)
+        fitted[top_:top_ + nh_, left_:left_ + nw_] = (
+            native.resize_pil_bilinear(small, (nh_, nw_)))
+        path_counts["bytes 360x640"] = serve_path(
+            "submit_bytes (one 360x640 PNG)", rec, ("yolo_front", "lpsr"),
+            rec.recognize(np.stack([fitted] * BATCH))[:1],
+            lambda srv: results_of([srv.submit_bytes(png_bytes(small))]))
+
+    def pool_run(srv):
+        srv.preload(frames)
+        return results_of([srv.submit_ref(i) for i in range(BATCH)])
+
+    path_counts["pool"] = serve_path(
+        "pool (preload + submit_ref)", rec, ("yolo_front", "lpsr"), results,
+        pool_run)
+    path_counts["pool, packed_input"] = serve_path(
+        "pool, packed_input (preload + submit_ref)", rec_packed,
+        ("yolo_front_u8", "lpsr"), results_packed, pool_run)
+
+    def http_run(srv):
+        fe = HttpFrontend(srv, host="127.0.0.1", port=0).start()
+        url = f"http://127.0.0.1:{fe.port}"
+
+        def post(route, arr):
+            buf = io.BytesIO()
+            np.save(buf, arr)
+            req = urllib.request.Request(url + route, data=buf.getvalue())
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return json.loads(resp.read())
+
+        try:
+            with urllib.request.urlopen(url + "/v2/health/ready",
+                                        timeout=60) as resp:
+                if resp.status != 200 or resp.read() != b"READY":
+                    raise AssertionError("HTTP health route")
+            got = [post("/v2/models/pipeline/infer", frames[0])]
+            got += post("/v2/models/pipeline/infer_batch", frames)
+            with urllib.request.urlopen(url + "/v2/stats",
+                                        timeout=60) as resp:
+                stats = json.loads(resp.read())
+            if stats["requests"] != 1 + BATCH:
+                raise AssertionError(f"HTTP stats route: {stats}")
+        finally:
+            fe.stop()
+        if any("sr" in p_ for r_ in got for p_ in r_):
+            raise AssertionError("HTTP answers carry the sr crops")
+        return got
+
+    path_counts["http"] = serve_path(
+        "HTTP (health, infer, infer_batch, stats)", rec,
+        ("yolo_front", "lpsr"), results[:1] + results, http_run)
+    phase("serve", t, f"; {len(served)} requests, launches {serve_counts}; "
+          f"further paths {path_counts}")
+
+    # ---- 8. serving -----------------------------------------------------
+    from lpr_tpu_torch.tools import bench_serving
+
+    t = time.perf_counter()
+    brief = ["--clients", "16", "--frames", "4", "--max-batch", "8"]
+    modes = [[], ["--pool"], ["--http"]] + ([] if decode_missing
+                                            else [["--files"]])
+    for m in modes:
+        if bench_serving.main(brief + m) != 0:
+            raise AssertionError(f"bench_serving {m}")
+    phase("serving", t, f"; modes {[m or ['frames'] for m in modes]}")
+
+    # ---- 9. bench -------------------------------------------------------
     from lpr_tpu_torch import bench
 
     t = time.perf_counter()

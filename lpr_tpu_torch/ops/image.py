@@ -10,9 +10,11 @@ device, as ordinary tensors even under inference mode, so a step uploads
 none after its first call (the precondition for capturing it as a CUDA
 graph).
 
-:func:`letterbox_host` is the host half of the packed-input path: numpy
-uint8 frames letterboxed into the detector's input, as the JAX package's
-``pack_front_frames_host`` and the native ``letterbox_into`` do it.
+:func:`letterbox_host` is the host half of the packed-input path: uint8
+frames letterboxed into the detector's input by the port's C letterbox, as
+the JAX package's ``pack_front_frames_host`` and the native
+``letterbox_into`` do it; :func:`letterbox_host_plain` is its numpy
+reference.
 """
 
 from __future__ import annotations
@@ -146,20 +148,50 @@ def _resize_u8(frames: np.ndarray, nh: int, nw: int) -> np.ndarray:
     return v.astype(np.uint8)
 
 
-def letterbox_host(frames_u8: np.ndarray, det_hw: Tuple[int, int]
-                   ) -> np.ndarray:
-    """Letterbox uint8 frames (B, H, W, 3) on the host into the detector
-    input (B, oh, ow, 3) uint8, zero pad, with :func:`letterbox_geom`'s
-    geometry: the letterbox half of the JAX package's
-    ``pack_front_frames_host`` (``lpr_tpu/ops/pallas/yolo_front.py``) and
-    of the native ``letterbox_into``.  A pad-only letterbox (720p into
-    736x1280) is a row copy, byte for byte; a resize takes the native
-    bilinear taps (:func:`_resize_u8`).  The result is K1's own input
-    layout, NHWC, not the TPU kernel's quarter-grid planes."""
-    frames = np.asarray(frames_u8)
+def _check_frames_u8(frames) -> np.ndarray:
+    frames = np.asarray(frames)
     if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[3] != 3:
         raise ValueError(f"expected uint8 frames (B, H, W, 3), got "
                          f"{frames.dtype} {frames.shape}")
+    return frames
+
+
+def letterbox_host(frames_u8, det_hw: Tuple[int, int], out=None
+                   ) -> np.ndarray:
+    """Letterbox uint8 frames (B, H, W, 3), or a sequence of B (H, W, 3)
+    frames, on the host into the detector input (B, oh, ow, 3) uint8, zero
+    pad, with :func:`letterbox_geom`'s geometry, through the threaded C
+    batch letterbox
+    (``csrc/host_letterbox.cc``, :func:`lpr_tpu_torch.native.
+    letterbox_batch_into`): the letterbox half of the JAX package's
+    ``pack_front_frames_host`` and of the native ``letterbox_into``.  A
+    pad-only letterbox (720p into 736x1280) is a row copy; a resize takes
+    the native bilinear taps.  The bytes equal :func:`letterbox_host_plain`'s.
+    ``out`` (a uint8 host array or tensor of the result's shape, such as
+    the pinned staging buffer) is written in place of a new array; the
+    result is K1's own input layout, NHWC, not the TPU kernel's
+    quarter-grid planes."""
+    from lpr_tpu_torch import native
+
+    frames = (frames_u8 if isinstance(frames_u8, (list, tuple))
+              else np.asarray(frames_u8))
+    if not len(frames):
+        raise ValueError("no frames to letterbox")
+    B = len(frames)
+    h, w = np.shape(frames[0])[:2]      # the C entry checks the rest
+    _, (nh, nw), (left, top) = letterbox_geom(h, w, det_hw)
+    if out is None:
+        out = np.empty((B, *det_hw, 3), np.uint8)
+    native.letterbox_batch_into(frames, out, (nh, nw, top, left))
+    return out
+
+
+def letterbox_host_plain(frames_u8: np.ndarray, det_hw: Tuple[int, int]
+                         ) -> np.ndarray:
+    """:func:`letterbox_host` in numpy: the reference its C is held to byte
+    for byte.  A resize takes the native bilinear taps
+    (:func:`_resize_u8`)."""
+    frames = _check_frames_u8(frames_u8)
     B, h, w, _ = frames.shape
     oh, ow = det_hw
     _, (nh, nw), (left, top) = letterbox_geom(h, w, det_hw)

@@ -84,6 +84,14 @@ def _add_counts(delta: Sequence[int]) -> None:
         setattr(f, a, getattr(f, a) + n)
 
 
+def _batch_shape(frames) -> Tuple[int, ...]:
+    """(B, H, W, 3) of a batch: an array or tensor, or a sequence of B
+    frames."""
+    if isinstance(frames, (list, tuple)):
+        return (len(frames), *(int(n) for n in np.shape(frames[0])))
+    return tuple(int(n) for n in frames.shape)
+
+
 def _clone(tree):
     """A copy of a step output (dicts of tensors), on the same stream."""
     if isinstance(tree, dict):
@@ -93,7 +101,7 @@ def _clone(tree):
 
 class _Staged:
     """A static device buffer of one step input and two pinned host
-    buffers that feed it in turns: a host array is written into the pinned
+    buffers that feed it in turns: a host input is written into the pinned
     buffer whose last copy has finished, then copied with
     ``non_blocking=True``; a device tensor is copied directly."""
 
@@ -105,17 +113,27 @@ class _Staged:
         self._turn = 0
 
     def load(self, a) -> None:
+        """Copy ``a`` in: a device tensor directly; a host tensor, a numpy
+        batch or a sequence of frames through the pinned buffer, the last
+        two gathered by the C letterbox's threads
+        (:func:`lpr_tpu_torch.native.gather_into`)."""
+        from lpr_tpu_torch import native
+
         if isinstance(a, torch.Tensor) and a.device.type == "cuda":
             self.device.copy_(a)
-            return
+        elif isinstance(a, torch.Tensor):
+            self.fill(lambda host: host.copy_(a))
+        else:
+            self.fill(lambda host: native.gather_into(a, host))
+
+    def fill(self, write: Callable[[Tensor], Any]) -> None:
+        """``write(host)`` fills the pinned buffer whose last copy has
+        finished (waited on here), which is then copied in."""
         i, self._turn = self._turn, 1 - self._turn
         if self._done[i] is not None:
             self._done[i].synchronize()
         host = self._host[i]
-        if isinstance(a, torch.Tensor):
-            host.copy_(a)
-        else:
-            np.copyto(host.numpy(), a, casting="no")
+        write(host)
         self.device.copy_(host, non_blocking=True)
         self._done[i] = torch.cuda.Event()
         self._done[i].record()
@@ -205,6 +223,46 @@ def to_host(tree):
     if tree.dtype == torch.bfloat16:
         tree = tree.float()
     return tree.cpu().numpy()
+
+
+def start_to_host(tree) -> Callable[[], Dict[str, Any]]:
+    """Start copying a step output's device tensors to pinned host memory
+    on the current stream, without waiting; returns the function that
+    waits for those copies and gives what :func:`to_host` gives.  Issued
+    right after a step, the copies run before any later step on the
+    stream, so a caller that launches the next step first (the server's
+    one-deep pipeline) still gets this step's outputs as soon as it ends.
+    The returned arrays own their memory, so the pinned blocks go back to
+    PyTorch's host allocator and the next batch reuses them: allocating
+    new pinned memory would wait for the card to finish its work."""
+    on_card = []
+
+    def start(t):
+        if isinstance(t, dict):
+            return {k: start(v) for k, v in t.items()}
+        if t is None or t.device.type != "cuda":
+            return t
+        on_card.append(t)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    def own(a):
+        if isinstance(a, dict):
+            return {k: own(v) for k, v in a.items()}
+        return None if a is None else np.array(a)
+
+    copies = start(tree)
+    done = None
+    if on_card:
+        done = torch.cuda.Event()
+        done.record()
+
+    def finish():
+        if done is not None:
+            done.synchronize()
+        return own(to_host(copies)) if on_card else to_host(copies)
+
+    return finish
 
 
 class PlateRecognizer:
@@ -322,18 +380,22 @@ class PlateRecognizer:
         canv_long = _aspect_canvas(rgb, self.cfg.ocr_hw)
         return torch.where(is_long[:, None, None, None], canv_long, canv_sq)
 
-    def host_letterbox(self, frames) -> Optional[np.ndarray]:
+    def host_letterbox(self, frames, out=None) -> Optional[np.ndarray]:
         """With ``packed_input``: the frames (numpy or tensor) letterboxed
         on the host into K1's uint8 input (:func:`im.letterbox_host`, the
-        JAX step_raw's host pack); None otherwise."""
+        JAX step_raw's host pack), written into ``out`` where given (a host
+        buffer of the result's shape); None otherwise."""
         if not self.cfg.packed_input:
             return None
         if isinstance(frames, torch.Tensor):
             frames = frames.cpu().numpy()
-        return im.letterbox_host(frames, self.cfg.det_hw)
+        return im.letterbox_host(frames, self.cfg.det_hw, out=out)
 
     def _upload(self, frames) -> Tensor:
-        """uint8 frames (numpy or tensor) on the device."""
+        """uint8 frames (numpy, tensor or a sequence of frames) on the
+        device."""
+        if isinstance(frames, (list, tuple)):
+            frames = np.stack(frames)
         if isinstance(frames, np.ndarray):   # torch needs a writable array
             frames = torch.from_numpy(np.require(frames, requirements="W"))
         return frames.to(self.device)
@@ -422,8 +484,8 @@ class PlateRecognizer:
 
     @torch.inference_mode()
     def step_raw(self, frames, packed=None, run=None) -> Dict[str, Any]:
-        """The step: uint8 frames (B, H, W, 3) (numpy or tensor) -> dict of
-        fixed-shape device tensors (``lpr_tpu``'s ``step_raw`` and
+        """The step: uint8 frames (B, H, W, 3) (numpy or tensor, or a
+        sequence of B (H, W, 3) frames) -> dict of fixed-shape device tensors (``lpr_tpu``'s ``step_raw`` and
         ``_step_impl``).  With ``packed_input``, ``packed`` is the frames
         letterboxed by :meth:`host_letterbox`, which runs here when it is
         None.
@@ -441,8 +503,6 @@ class PlateRecognizer:
                              "PipelineConfig(packed_input=True)")
         if run is None and self.cfg.freeze_params and \
                 self.device.type == "cuda":
-            if self.cfg.packed_input and packed is None:
-                packed = self.host_letterbox(frames)
             return self._frozen_step(frames, packed)
         return self.step_eager(frames, packed, run)
 
@@ -493,19 +553,34 @@ class PlateRecognizer:
             "chars_sr": split(n_orig, n_orig + B * P),
         }
 
+    def _load_inputs(self, fr: _Staged, pk: Optional[_Staged], frames,
+                     packed) -> None:
+        """The step's inputs into the graph's static buffers.  With
+        ``packed_input`` and no ``packed``, the host letterbox writes
+        straight into the pinned buffer (:meth:`_Staged.fill`), which is
+        then copied in: no intermediate array."""
+        fr.load(frames)
+        if pk is None:
+            return
+        if packed is not None:
+            pk.load(packed)
+        elif isinstance(frames, torch.Tensor) and frames.device.type == "cuda":
+            pk.load(self.host_letterbox(frames))
+        else:
+            pk.fill(lambda host: self.host_letterbox(frames, out=host))
+
     def _frozen_step(self, frames, packed) -> Dict[str, Any]:
         """The device step as a replay of the graph captured for this frame
         shape (captured here at its first call): the inputs go into the
         graph's static buffers, the graph replays on the current stream,
         the kernels it holds are added to their launch counts, and the
         outputs are copied out of the graph's pool."""
-        key = tuple(int(n) for n in frames.shape)
+        key = _batch_shape(frames)
         g = self._graphs.get(key)
         if g is None:
             g = self._graphs[key] = self._capture(frames, packed)
-        g.frames.load(frames)
-        if g.packed is not None:
-            g.packed.load(packed)
+        else:
+            self._load_inputs(g.frames, g.packed, frames, packed)
         g.graph.replay()
         _add_counts(g.launches)
         return _clone(g.out)
@@ -521,12 +596,12 @@ class PlateRecognizer:
         they call at every launch, ``cudaFuncSetAttribute`` and K2's
         cluster launch, captures (checked on an H100)."""
         dev = self.device
-        fr = _Staged(tuple(frames.shape), dev)
+        shape = _batch_shape(frames)
+        fr = _Staged(shape, dev)
         pk = None
         if self.cfg.packed_input:
-            pk = _Staged(tuple(packed.shape), dev)
-            pk.load(packed)
-        fr.load(frames)
+            pk = _Staged((shape[0], *self.cfg.det_hw, 3), dev)
+        self._load_inputs(fr, pk, frames, packed)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):

@@ -10,12 +10,22 @@ CUDA graph replay, captured at the first batch (one shape, so one graph),
 whose outputs are copies that the next replay leaves alone; with
 ``packed_input`` its host letterbox runs here in the collector, before the
 batch goes to the device (as the JAX server's step_raw packs).  The step
-of batch N+1 is launched before batch N's results are copied to the host
-and assembled (a one-deep pipeline).
+of batch N+1 is launched before batch N's results are assembled (a
+one-deep pipeline); batch N's outputs start their copy to the host as soon
+as its step is launched, ahead of batch N+1's step on the stream.
 
-The collector is a daemon thread.  :meth:`InferenceServer.stop` joins it
-with a timeout and fails every request still queued, so no future is left
-unresolved.
+Files and encoded bytes (:meth:`InferenceServer.submit_path`,
+``submit_paths``, ``submit_bytes``) are decoded and letterboxed to the
+served shape on a pool of ``decode_workers`` threads by the port's C host
+decode (:mod:`lpr_tpu_torch.native`), which releases the interpreter lock,
+so decoding overlaps the device step.  A device-resident frame pool
+(:meth:`InferenceServer.preload`, then ``submit_ref``/``infer_ref`` by
+index) keeps the frames on the card: a batch gathers its frames there and
+only the indices leave the host.
+
+The collector is a daemon thread.  :meth:`InferenceServer.stop` shuts the
+decode pool down, joins the collector with a timeout and fails every
+request still queued, so no future is left unresolved.
 """
 
 from __future__ import annotations
@@ -28,8 +38,9 @@ from concurrent.futures import Future
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-from lpr_tpu_torch.pipeline.recognizer import to_host
+from lpr_tpu_torch.pipeline.recognizer import start_to_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +52,10 @@ class ServeConfig:
     # submitted frame fixes the served shape and mismatches are rejected
     # at submit() time.
     frame_hw: Optional[tuple] = None
+    # Host decode threads of submit_path/submit_paths/submit_bytes (JPEG/PNG
+    # -> letterboxed uint8 through the port's C host decode, which runs
+    # without the interpreter lock, so the threads scale).
+    decode_workers: int = 8
     # Return the SR plate-crop images in each result dict; False never
     # copies them off the device.
     return_sr: bool = True
@@ -55,6 +70,14 @@ class ServerStats:
     latencies_s: list = dataclasses.field(default_factory=list)
     max_latencies: int = 100_000
     started_s: float = dataclasses.field(default_factory=time.perf_counter)
+    # The collector thread's time (s), summed over its loop: waiting for
+    # and gathering requests (_collect), assembling a batch and launching
+    # its step (_dispatch), and waiting for, copying and assembling a
+    # launched batch's outputs (_resolve).  Read by bench_serving's
+    # collector_ms; not part of summary(), which matches lpr_tpu's.
+    collect_s: float = 0.0
+    dispatch_s: float = 0.0
+    resolve_s: float = 0.0
 
     def record(self, latency_s: float) -> None:
         self.requests += 1
@@ -110,6 +133,8 @@ class InferenceServer:
         self._shape_lock = threading.Lock()
         self._frame_shape: Optional[tuple] = (
             (*cfg.frame_hw, 3) if cfg.frame_hw is not None else None)
+        self._decoder = None  # the decode thread pool, made at first use
+        self._pool = None     # the device-resident frame pool (preload)
 
     def start(self) -> "InferenceServer":
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -118,8 +143,12 @@ class InferenceServer:
         return self
 
     def stop(self, timeout: float = 30.0) -> None:
-        """Stop the collector (joined with ``timeout``) and fail every
-        request that is still queued."""
+        """Shut the decode pool down (its queued work still submits), stop
+        the collector (joined with ``timeout``) and fail every request that
+        is still queued."""
+        if self._decoder is not None:
+            self._decoder.shutdown(wait=True)
+            self._decoder = None
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=timeout)
@@ -150,6 +179,9 @@ class InferenceServer:
         a mismatch raises here instead of poisoning a batch."""
         if self._stop.is_set():
             raise RuntimeError("server stopped")
+        if self._pool is not None:
+            raise ValueError("the server is in device-pool (ref) mode after "
+                             "preload(); use submit_ref(index)")
         frame = np.asarray(frame)
         if frame.ndim != 3 or frame.shape[-1] != 3:
             raise ValueError(f"expected (H, W, 3) RGB frame, got {frame.shape}")
@@ -162,14 +194,186 @@ class InferenceServer:
                 raise ValueError(
                     f"frame shape {frame.shape} does not match the served "
                     f"shape {self._frame_shape}")
+        return self._enqueue(frame)
+
+    def _enqueue(self, item) -> Future:
         fut: Future = Future()
-        self._q.put((frame, fut, time.perf_counter()))
+        self._q.put((item, fut, time.perf_counter()))
         if self._stop.is_set():  # stop() may have drained before the put
             self._drain()
         return fut
 
     def infer(self, frame: np.ndarray, timeout: Optional[float] = None):
         return self.submit(frame).result(timeout)
+
+    # -- file/bytes ingestion (the port's C host decode) -----------------
+    def _decode_pool(self):
+        if self._decoder is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._decoder = ThreadPoolExecutor(
+                max_workers=self.cfg.decode_workers,
+                thread_name_prefix="lpr-decode")
+        return self._decoder
+
+    def _served_hw(self) -> tuple:
+        """The served (H, W) for decoded images; also builds the host
+        decode library here, so a machine without it (no libjpeg/libpng
+        headers) raises in the caller, with g++'s message."""
+        from lpr_tpu_torch import native
+
+        with self._shape_lock:
+            if self._frame_shape is None:
+                raise ValueError(
+                    "submit_path/submit_bytes need a fixed frame shape: set "
+                    "ServeConfig.frame_hw (encoded images are letterboxed "
+                    "to it on the host)")
+            hw = self._frame_shape[:2]
+        native.library("host_decode")
+        return hw
+
+    @staticmethod
+    def _forward(inner: Future, outer: Future) -> None:
+        """Resolve ``outer`` with ``inner``'s result or exception."""
+        def fwd(f):
+            if outer.done():
+                return
+            err = f.exception()
+            if err is not None:
+                outer.set_exception(err)
+            else:
+                outer.set_result(f.result())
+
+        inner.add_done_callback(fwd)
+
+    def _chain(self, outer: Future, work) -> Future:
+        """Run ``work`` (decode, then submit) on the decode pool and forward
+        the future it returns, or its exception, to ``outer``."""
+        def run():
+            try:
+                inner = work()
+            except Exception as e:  # the future carries it, not the pool
+                if not outer.done():
+                    outer.set_exception(e)
+                return
+            self._forward(inner, outer)
+
+        self._decode_pool().submit(run)
+        return outer
+
+    def submit_path(self, path: str) -> Future:
+        """Image file (JPEG/PNG) -> Future[List[plate dict]].  Decode and
+        letterbox to the served shape (the native ``letterbox_into``'s
+        geometry) run on the decode pool, overlapping the device step."""
+        from lpr_tpu_torch import native
+
+        hw = self._served_hw()
+        return self._chain(Future(), lambda: self.submit(
+            native.load_letterbox_batch([path], hw)[0]))
+
+    def submit_paths(self, paths: List[str]) -> List[Future]:
+        """Batch file ingestion: one native decode call (its own threads)
+        per ``max_batch`` chunk on the decode pool, then each frame enters
+        the dynamic-batching queue."""
+        from lpr_tpu_torch import native
+
+        hw = self._served_hw()
+        outers = [Future() for _ in paths]
+
+        def work_chunk(chunk_paths, chunk_outers):
+            try:
+                frames = native.load_letterbox_batch(list(chunk_paths), hw)
+            except Exception as e:  # the futures carry it, not the pool
+                self._fail([(None, o, None) for o in chunk_outers], e)
+                return
+            for frame, outer in zip(frames, chunk_outers):
+                try:
+                    inner = self.submit(frame)
+                except Exception as e:  # the future carries it
+                    self._fail([(None, outer, None)], e)
+                    continue
+                self._forward(inner, outer)
+
+        chunk = max(1, self.cfg.max_batch)
+        for s in range(0, len(paths), chunk):
+            self._decode_pool().submit(
+                work_chunk, paths[s:s + chunk], outers[s:s + chunk])
+        return outers
+
+    def submit_bytes(self, data: bytes) -> Future:
+        """Encoded image bytes (JPEG/PNG) -> Future[List[plate dict]].  An
+        image of another shape than the served one is resized with Pillow's
+        bilinear resample (the port's C copy,
+        :func:`lpr_tpu_torch.native.resize_pil_bilinear`) to fit, centred
+        on a black canvas, as the JAX server does; bytes that do not decode
+        fail the future."""
+        from lpr_tpu_torch import native
+
+        oh, ow = self._served_hw()
+
+        def work():
+            img = native.decode_image(data)
+            if img is None:
+                raise ValueError("undecodable image bytes")
+            if img.shape[:2] != (oh, ow):
+                h, w = img.shape[:2]
+                r = min(oh / h, ow / w)
+                nh, nw = max(int(round(h * r)), 1), max(int(round(w * r)), 1)
+                canvas = np.zeros((oh, ow, 3), np.uint8)
+                t, l = (oh - nh) // 2, (ow - nw) // 2
+                canvas[t:t + nh, l:l + nw] = native.resize_pil_bilinear(
+                    img, (nh, nw))
+                img = canvas
+            return self.submit(img)
+
+        return self._chain(Future(), work)
+
+    # -- device-resident frame pool --------------------------------------
+    def preload(self, frames: np.ndarray) -> int:
+        """Put a frame pool (N, H, W, 3) uint8 on the recognizer's device
+        once; clients then name frames by index (:meth:`submit_ref`), so a
+        batch gathers its frames on the device and only the indices leave
+        the host.  With ``packed_input`` the pool also holds its frames'
+        letterbox, made once here.  Needs the frozen step
+        (``PipelineConfig.freeze_params``, the default).  After it the
+        server is in ref mode: :meth:`submit` raises.  Returns the pool
+        size."""
+        frames = np.ascontiguousarray(np.asarray(frames, np.uint8))
+        if frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"expected (N, H, W, 3) pool, got {frames.shape}")
+        if not getattr(getattr(self.rec, "cfg", None), "freeze_params",
+                       False):
+            raise ValueError("preload() requires the frozen step "
+                             "(PipelineConfig.freeze_params, the default)")
+        with self._shape_lock:
+            if self._frame_shape is None:
+                self._frame_shape = frames.shape[1:]
+            elif frames.shape[1:] != self._frame_shape:
+                raise ValueError(
+                    f"pool frame shape {frames.shape[1:]} does not match the "
+                    f"served shape {self._frame_shape}")
+        dev = self.rec.device
+        pool = {"frames": torch.from_numpy(frames).to(dev)}
+        if self.rec.cfg.packed_input:
+            pool["packed"] = torch.from_numpy(
+                self.rec.host_letterbox(frames)).to(dev)
+        self._pool = pool
+        return frames.shape[0]
+
+    def submit_ref(self, index: int) -> Future:
+        """Pool index -> Future[List[plate dict]].  Needs :meth:`preload`."""
+        if self._stop.is_set():
+            raise RuntimeError("server stopped")
+        if self._pool is None:
+            raise ValueError("submit_ref requires preload() first")
+        n = int(self._pool["frames"].shape[0])
+        index = int(index)
+        if not 0 <= index < n:
+            raise IndexError(f"pool index {index} out of range [0, {n})")
+        return self._enqueue(index)
+
+    def infer_ref(self, index: int, timeout: Optional[float] = None):
+        return self.submit_ref(index).result(timeout)
 
     def submit_many(self, frames: np.ndarray) -> List[Future]:
         """(B, H, W, 3) uint8 -> one future per frame, through the same
@@ -206,26 +410,42 @@ class InferenceServer:
                 fut.set_exception(err)
 
     def _dispatch(self, items):
-        """Pad the batch and launch its device step.  Returns the pending
-        (out, items, n, pad), or None after failing the futures."""
+        """Pad the batch, launch its device step and start copying its
+        outputs to the host (:func:`start_to_host`: queued on the stream
+        before the next batch's step, so resolving this batch waits for
+        this batch alone).  Returns the pending (fetch, items, n, pad), or
+        None after failing the futures."""
         n = len(items)
         pad = self.cfg.max_batch - n
         try:
-            frames = [it[0] for it in items]
-            out = self.rec.step_raw(np.stack(frames + [frames[-1]] * pad))
+            batch = [it[0] for it in items]
+            batch += [batch[-1]] * pad
+            if self._pool is not None:
+                # ref mode: the indices go to the device, the frames (and
+                # their letterbox) are gathered there
+                idx = torch.as_tensor(batch, dtype=torch.int64).to(
+                    self.rec.device)
+                out = self.rec.step_raw(*(
+                    self._pool[k].index_select(0, idx)
+                    for k in ("frames", "packed") if k in self._pool))
+            else:
+                # the frames as they came: the frozen step gathers them
+                # into its pinned staging buffer with threads
+                out = self.rec.step_raw(batch)
+            if not self.cfg.return_sr:
+                out = {k: v for k, v in out.items() if k != "sr"}
+            fetch = start_to_host(out)
         except Exception as e:  # the collector must keep serving
             self._fail(items, e)
             return None
-        return out, items, n, pad
+        return fetch, items, n, pad
 
     def _resolve(self, pending) -> None:
-        """Copy a launched batch's outputs to the host and resolve its
-        futures."""
-        out, items, n, pad = pending
+        """Wait for a launched batch's outputs on the host, assemble them
+        and resolve its futures."""
+        fetch, items, n, pad = pending
         try:
-            if not self.cfg.return_sr:
-                out = {k: v for k, v in out.items() if k != "sr"}
-            results = self.rec.assemble(to_host(out))
+            results = self.rec.assemble(fetch())
         except Exception as e:  # the collector must keep serving
             self._fail(items, e)
             return
@@ -238,11 +458,19 @@ class InferenceServer:
 
     def _loop(self) -> None:
         pending = None
+        st = self.stats
         while not self._stop.is_set():
+            t0 = time.perf_counter()
             items = self._collect(block=pending is None)
+            t1 = time.perf_counter()
             nxt = self._dispatch(items) if items else None
+            t2 = time.perf_counter()
             if pending is not None:
                 self._resolve(pending)
+            st = self.stats     # a caller may have reset the stats
+            st.collect_s += t1 - t0
+            st.dispatch_s += t2 - t1
+            st.resolve_s += time.perf_counter() - t2
             pending = nxt
         if pending is not None:
             self._resolve(pending)

@@ -9,10 +9,12 @@ On 720p frames made from a seed (``tools/synth.py``), detector at
 two ways into K1, beside the card's name and power limit:
 
 - packed input (``PipelineConfig.packed_input``): the host letterbox
-  (``ops/image.py`` ``letterbox_host``, host clock, ms per frame, beside a
-  numpy copy of the same output bytes), the pinned upload of the
-  letterboxed uint8 frames (and, beside it, the pageable one), and K1's
-  uint8 instance on them;
+  (``ops/image.py`` ``letterbox_host``, the threaded C letterbox, into a
+  new array and into the pinned staging buffer as the frozen step writes
+  it, and its numpy reference ``letterbox_host_plain``; host clock, ms per
+  frame, each beside a numpy copy of the same output bytes), the pinned
+  upload of the letterboxed uint8 frames (and, beside it, the pageable
+  one), and K1's uint8 instance on them;
 - device letterbox: the raw frames' upload, the step's "letterbox+norm"
   stage (cast, /255, pad) followed by K1's bf16 instance, and K1 bf16
   alone.
@@ -71,7 +73,8 @@ def main(argv=None) -> int:
     from lpr_tpu_torch.device import resolve_device
     from lpr_tpu_torch.kernels import yolo_front as kf
     from lpr_tpu_torch.models.yolo import load_plate_detector
-    from lpr_tpu_torch.ops.image import letterbox, letterbox_host
+    from lpr_tpu_torch.ops.image import (letterbox, letterbox_host,
+                                         letterbox_host_plain)
     from lpr_tpu_torch.tools.synth import synth_frames
 
     dev = resolve_device(args.device)
@@ -108,11 +111,18 @@ def main(argv=None) -> int:
     k1 = kf.front_work(B, oh, ow)
     # the letterbox reads the uint8 frames and writes the bf16 input
     lb_work = (0, fr_dev.numel() + B * oh * ow * 3 * 2)
+    copy_ms = ("numpy copy of its output bytes",
+               min(host_ms_per(lambda: np.copyto(out_copy, lb), B, rd)))
     rows: List[Tuple[str, List[float], object]] = [
         ("host letterbox (ms per frame)",
          host_ms_per(lambda: letterbox_host(frames, (oh, ow)), B, rd),
-         ("numpy copy of its output bytes",
-          min(host_ms_per(lambda: np.copyto(out_copy, lb), B, rd)))),
+         copy_ms),
+        ("host letterbox into pinned (ms per frame)",
+         host_ms_per(lambda: letterbox_host(frames, (oh, ow), out=lb_pinned),
+                     B, rd), copy_ms),
+        ("host letterbox, numpy (ms per frame)",
+         host_ms_per(lambda: letterbox_host_plain(frames, (oh, ow)), B, rd),
+         copy_ms),
         ("upload, pinned (uint8 letterbox)", best_ms(up_pinned, it, rd, dev),
          lb_bytes / _timing.PCIE_BYTES_S * 1e3),
         ("upload, pageable (uint8 letterbox)",
@@ -147,7 +157,7 @@ def main(argv=None) -> int:
             beside = f"bound {bound[0]:.4f} ms ({bound[1]})"
         else:
             beside = f"bound {bound:.4f} ms (bytes over the host link)"
-        print(f"{name:38s} {min(ms):9.4f} ms  {beside}; rounds "
+        print(f"{name:42s} {min(ms):9.4f} ms  {beside}; rounds "
               f"{[round(m, 4) for m in ms]}")
     return 0
 

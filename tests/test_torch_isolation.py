@@ -72,3 +72,18 @@ def test_chip_smoke_fails_without_a_card_or_without_the_repo(alone,
         r = _run(["chip_smoke.py"], ROOT, CUDA_VISIBLE_DEVICES="")
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_the_walk_covers_the_serving_modules():
+    """The import probe above walks every module of the port, the host
+    library bindings, the HTTP front end and the serving benchmark
+    included."""
+    import pkgutil
+
+    import lpr_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(lpr_tpu_torch.__path__,
+                                                   "lpr_tpu_torch.")}
+    assert {"lpr_tpu_torch.native", "lpr_tpu_torch.serve.http",
+            "lpr_tpu_torch.serve.server",
+            "lpr_tpu_torch.tools.bench_serving"} <= names

@@ -17,9 +17,10 @@ from lpr_tpu_torch.kernels.yolo_mid import mid_pack
 from lpr_tpu_torch.models import yolo as tyolo
 from lpr_tpu_torch import bench
 from lpr_tpu_torch.pipeline.recognizer import STEP_STAGES, to_host
-from lpr_tpu_torch.tools import (bench_convs, bench_pack, bench_sr_convs,
-                                 prof_pipeline, probe_front_stages,
-                                 profile_detector_layers, profile_stages)
+from lpr_tpu_torch.tools import (bench_convs, bench_pack, bench_serving,
+                                 bench_sr_convs, prof_pipeline,
+                                 probe_front_stages, profile_detector_layers,
+                                 profile_stages)
 from lpr_tpu_torch.tools.profile_detector_layers import prefix_forward
 
 from . import torch_ref
@@ -172,6 +173,9 @@ TINY = {
     "bench": ["--frame-hw", "60", "120", "--det-w", "128"],
     "bench_pack": ["--batch", "1", "--iters", "1", "--rounds", "1",
                    "--frame-hw", "60", "120", "--det-hw", "64", "128"],
+    "bench_serving": ["--clients", "2", "--frames", "1", "--max-batch", "2",
+                      "--frame-hw", "60", "120", "--det-w", "128",
+                      "--dtype", "f32", "--pool"],
 }
 EXPECT = {
     "probe_front_stages": ["front[dma ]", "front[stem]", "front[down]",
@@ -190,6 +194,10 @@ EXPECT = {
     "bench_pack": ["host letterbox (ms per frame)",
                    "upload, pinned (uint8 letterbox)", "K1 uint8",
                    "letterbox+norm + K1 bf16"],
+    "bench_serving": ['"metric": "serving_frames_per_sec"', '"mode": "pool"',
+                      '"requests": 2', '"value": null',
+                      '"latency_ms_p99": null', '"cpu_latency_ms_p99": ',
+                      '"packed_input": true', '"det_hw": [64, 128]'],
 }
 
 
@@ -200,7 +208,7 @@ def test_tool_main_runs_on_cpu(tool, monkeypatch, capsys):
            "profile_detector_layers": profile_detector_layers,
            "prof_pipeline": prof_pipeline, "bench_convs": bench_convs,
            "bench_sr_convs": bench_sr_convs, "bench": bench,
-           "bench_pack": bench_pack}[tool]
+           "bench_pack": bench_pack, "bench_serving": bench_serving}[tool]
     for k, v in {"PROF_DET_HW": "64", "PROF_BATCH": "1", "PROF_STEPS": "1",
                  "PROF_STAGE": "det_nms", "BENCH_BATCH": "1",
                  "BENCH_STEPS": "2", "BENCH_REPS": "1"}.items():
