@@ -8,15 +8,18 @@ Phases, each printing one line with its elapsed seconds:
 1. device  — the card's name and power limit (nvidia-smi); fails without a
    CUDA device.
 2. build   — every kernel in lpr_tpu_torch/csrc (yolo_front K1 with its
-   uint8 instance and its K4 stage variants, lpsr K2, yolo_mid K3) built
+   uint8 instance and its K4 stage variants, lpsr K2, yolo_mid K3,
+   conv_int8 I1 and I2) built
    with nvcc (one process per source, all started together), loaded with
    ctypes; prints nvcc's register / shared-memory / spill report and the
    HMMA (tensor-core mma) instructions by cuobjdump -sass in
    lpsr_kernel<bf16>, in K1's front_kernel instances but the dma one (the
    bf16 stages and the uint8 FULL instance) and in K3's mid_kernel (fails
    if lpsr_kernel<bf16>, front_kernel<FULL, bf16>, front_kernel<FULL,
-   uint8_t> or mid_kernel has none), and nvcc's registers and spills for
-   the uint8 instance and mid_kernel.  Then the host libraries with g++
+   uint8_t> or mid_kernel has none), the IMMA (int8 mma) instructions in
+   each instance of I2's conv_int8_kernel (fails if one has none), and
+   nvcc's registers and spills for the uint8 instance, mid_kernel, I1 and
+   I2.  Then the host libraries with g++
    (csrc/host_letterbox.cc always; csrc/host_decode.cc, which links
    libjpeg and libpng, where g++ finds their headers, else one line says
    that the decode calls are not driven and why), each g++ command
@@ -47,7 +50,16 @@ Phases, each printing one line with its elapsed seconds:
    its bound and the model's own layers computing the same stage through
    cuDNN (stem: layer 0, down: layers 0-1, full: layers 0-2; none for
    dma).
-5. slice   — PlateRecognizer at the production configuration (720p frames,
+5. int8    — the int8 plate detector as int8_detector builds it
+   (plate_det640.npz quantized from float32, then bf16; K1 for layers
+   0-2) on the slice's 8 letterboxed frames: every quantized conv's input
+   kept once per distinct (weight shape, input shape, stride, padding);
+   at each, I1 (quantize) and I2 (int8 conv) against their plain versions
+   on the same input: codes, sx, the int32 sums and the output equal bit
+   for bit; each timed (plain, kernel, kernel, plain) beside its bound,
+   torch._int_mm on the im2col of the codes and cuDNN's bf16 conv of the
+   same shape; the sums over the step's convs go into the kernels line.
+6. slice   — PlateRecognizer at the production configuration (720p frames,
    detector at 736x1280, bf16, the repo's checkpoints, the step frozen
    into a CUDA graph as freeze_params does by default) on 8 frames made
    with numpy from a fixed seed (lpr_tpu_torch.tools.synth): the first
@@ -57,13 +69,17 @@ Phases, each printing one line with its elapsed seconds:
    through K1 against the same head through the plain front; frames/s of
    the frozen and of the eager step.  Then the same with
    PipelineConfig(packed_input=True) (the host letterbox, K1's uint8
-   instance) and with PipelineConfig(fused_mid=True) (K1 + K3).
-6. stages  — the default slice's step split by stage
+   instance), with PipelineConfig(fused_mid=True) (K1 + K3), with
+   PipelineConfig(int8_detector=True) (K1, I1, I2, K2; its plates and
+   strings beside the bf16 step's, boxes of frames whose plates are valid
+   in both within 6 px) and with PipelineConfig(lazy_decode=False) (boxes
+   and scores within 1e-3 of the lazy step's).
+7. stages  — the default slice's step split by stage
    (lpr_tpu_torch.tools.profile_stages, one short round): host ms,
    device-busy ms, kernels executed and host launches per stage, the step
    as a graph replay and, beside it, op by op; then each stage as the
    frozen step runs it (a device stage captured alone as a CUDA graph).
-7. serve   — InferenceServer(max_batch=8) answers 16 requests through the
+8. serve   — InferenceServer(max_batch=8) answers 16 requests through the
    frozen step; the answers must equal the recognizer's own; then stop().
    Then, each path with the launch counts set to 0 before it and read
    after it (K1 and K2 must have launched; K1's uint8 instance in the
@@ -75,12 +91,13 @@ Phases, each printing one line with its elapsed seconds:
    submit_ref) of the default recognizer and of the packed_input one, and
    HttpFrontend on 127.0.0.1 with every route (health, infer, infer_batch,
    stats).
-8. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
+9. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
    requests, max_batch 8), with frames, with the pool, over HTTP and, where
    host_decode built, with files: its JSON lines (client frames/s, latency
    p50/p99, mean batch, the card).
-9. bench   — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
-   with BENCH_PACKED=1 and =0: its JSON lines (frames/s, flops_per_frame,
+10. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
+   with BENCH_PACKED=1 and =0, and BENCH_PACKED=1 with BENCH_INT8=1 (which
+   must launch I1 and I2): its JSON lines (frames/s, flops_per_frame,
    mfu_pct against the bf16 peak, the card).
 
 Each path is driven with every launch count set to 0 just before it and
@@ -88,8 +105,9 @@ read just after; a graph replay adds to each count the launches the
 graph holds.  The second-to-last line is one JSON object {"kernels":
 [...]} (launch counts of K1's bf16 instance and K2 from the serve phase's
 16 requests, the main path a user drives, of K1's uint8 instance from the
-packed_input slice, of K3 from the fused_mid slice, of each K4 variant from the probe
-phase); the last line is {"ok": true, "device": {...}}.  Any failure
+packed_input slice, of K3 from the fused_mid slice, of I1 and I2 from the
+int8_detector slice, of each K4 variant from the probe phase); the last
+line is {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero before that line.  A watchdog turns a hang into
 a failing exit with a traceback.
 """
@@ -104,11 +122,11 @@ import subprocess
 import sys
 import time
 
-# A whole run, the three nvcc builds (all started together; K2's, the
-# longest, about a minute) included, measured 89-146 s on an H100 before
-# the frozen step, the uint8 instance and the bench phase; the watchdog
-# turns a hang into a failing exit well inside the check's 1200 s.
-WATCHDOG_S = 480
+# A whole run, the nvcc builds (all started together; K2's, the longest,
+# about a minute) included, measured 101-167 s on an H100 before the int8
+# phase; the watchdog turns a hang into a failing exit inside the check's
+# 1200 s.
+WATCHDOG_S = 900
 SEED = 0
 BATCH = 8
 FRAME_HW = (720, 1280)
@@ -174,6 +192,7 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     from lpr_tpu_torch.kernels import _build
+    from lpr_tpu_torch.kernels import conv_int8 as ki
     from lpr_tpu_torch.kernels import lpsr as kl
     from lpr_tpu_torch.kernels import yolo_front as kf
     from lpr_tpu_torch.kernels import yolo_mid as km
@@ -184,7 +203,7 @@ def main() -> int:
     for name, lib in libs.items():
         for line in lib.ptxas_log:
             print(f"nvcc[{name}]: {line}", flush=True)
-    if sorted(libs) != ["lpsr", "yolo_front", "yolo_mid"]:
+    if sorted(libs) != ["conv_int8", "lpsr", "yolo_front", "yolo_mid"]:
         raise AssertionError(f"built {sorted(libs)}")
     smem = {n: getattr(libs[n].cdll, f"lpr_{n}_smem_bytes")() for n in libs}
     # The tensor cores in K2: HMMA instructions of lpsr_kernel<bf16> (with
@@ -234,6 +253,19 @@ def main() -> int:
           flush=True)
     if k3_hmma < 1:
         raise AssertionError("no HMMA in mid_kernel")
+    # I2's instances conv_int8_kernel<bf16 | float | int>: the tensor
+    # cores' int8 mma (IMMA); and nvcc's registers and spills for I1, I2.
+    i2_imma = {fn.split("conv_int8_kernel", 1)[1][:18]: c for fn, c in
+               _build.sass_counts(libs["conv_int8"].path, "IMMA").items()
+               if "conv_int8_kernel" in fn}
+    log = libs["conv_int8"].ptxas_log
+    i_nvcc = [ln for ln in log if "Used" in ln or "spill" in ln]
+    print(f"I2 conv_int8_kernel IMMA instructions by instance: {i2_imma}; "
+          f"I1/I2 nvcc {'; '.join(i_nvcc) or 'not reported (library already built)'}",
+          flush=True)
+    if not i2_imma or min(i2_imma.values()) < 1:
+        raise AssertionError(f"no IMMA in an instance of conv_int8_kernel: "
+                             f"{i2_imma}")
     # The host libraries (g++): the letterbox of the packed input always;
     # the image decode only where g++ finds libjpeg's and libpng's headers
     # (without them it cannot build, and its calls are not driven).
@@ -259,12 +291,16 @@ def main() -> int:
         kl.lpsr_fused.launches = 0
         km.yolo_mid.launches = 0
         kf.front_stage.launches = dict.fromkeys(kf.STAGES, 0)
+        ki.quantize_act.launches = 0
+        ki.conv_int8.launches = 0
 
     def counts():
         return {"yolo_front": kf.yolo_front.launches,
                 "yolo_front_u8": kf.yolo_front.launches_u8,
                 "lpsr": kl.lpsr_fused.launches,
-                "yolo_mid": km.yolo_mid.launches}
+                "yolo_mid": km.yolo_mid.launches,
+                "quantize_act": ki.quantize_act.launches,
+                "conv_int8": ki.conv_int8.launches}
 
     def timed(kernel, plain, iters):
         """(kernel ms, plain ms, runs) over turns plain, kernel, kernel,
@@ -585,15 +621,155 @@ def main() -> int:
         f"{k['replaces']})" for k in kernels), flush=True)
     phase("probe", t, f"; launches {probe_counts}")
 
-    # ---- 5. slice -------------------------------------------------------
+    # ---- 5. int8 --------------------------------------------------------
+    import torch.nn.functional as F
+
+    from lpr_tpu_torch.models.yolo import quantize_yolo, quantized_convs
     from lpr_tpu_torch.ops.image import letterbox
-    from lpr_tpu_torch.pipeline.recognizer import (PipelineConfig,
-                                                   PlateRecognizer, to_host)
+    from lpr_tpu_torch.ops.nn import _resolve_padding
     from lpr_tpu_torch.tools.synth import synth_frames
 
     t = time.perf_counter()
-    char, names = load_char_ocr_npz(CKPT_CHAR)
+    # The int8 detector as int8_detector builds it: quantized from the
+    # float32 weights, then cast to bf16; K1 runs layers 0-2 from the float
+    # weights.  Its real activations: every quantized conv's input on the
+    # letterboxed frames of the slice, kept once per distinct (weight
+    # shape, input shape, stride, padding), with how often the step runs it.
+    plate8 = quantize_yolo(load_plate_detector(CKPT_PLATE)).to(torch.bfloat16)
+    front8 = kf.front_pack(plate8)
     frames = synth_frames(BATCH, FRAME_HW, SEED)
+    with torch.inference_mode():
+        lb8 = letterbox(torch.as_tensor(frames, device="cuda").to(
+            torch.bfloat16) / 255.0, DET_HW, fill=0.0)[0].contiguous()
+    seen = {}
+
+    def keep_input(conv, args):
+        c = conv.conv
+        key = (tuple(conv.w_q.shape), tuple(args[0].shape), c.stride,
+               _resolve_padding(c.padding, *conv.w_q.shape[:2]))
+        if key not in seen:
+            seen[key] = [args[0].clone(), 0, conv]
+        seen[key][1] += 1
+
+    hooks = [m.register_forward_pre_hook(keep_input)
+             for m in quantized_convs(plate8).values()]
+    with torch.inference_mode():
+        plate8(lb8, front=front8)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    n_run = sum(v[1] for v in seen.values())
+    print(f"int8 detector at ({BATCH}, {DET_HW[0]}, {DET_HW[1]}): "
+          f"{len(quantized_convs(plate8))} quantized convs, {n_run} run "
+          f"after K1, {len(seen)} distinct (weight, input) shapes",
+          flush=True)
+    tot = dict.fromkeys(("i1", "i1_plain", "i1_bound", "i2", "i2_plain",
+                         "i2_bound", "int_mm", "cudnn"), 0.0)
+    i2_err = 0.0
+    int_mm_ok = True
+    i2_ops_time = 0.0
+    for (w_shape, x_shape, stride, pad), (x, n, conv) in seen.items():
+        kh, kw_, cin, cout = w_shape
+        ws = conv.w_s_bits.view(torch.float32)
+        b = None if conv.b_bits is None else conv.b_bits.view(torch.float32)
+        kw = dict(stride=(stride, stride), padding=pad)
+        with torch.inference_mode():
+            xq, sx = ki.quantize_act(x)
+            pxq, psx = ki.quantize_act_plain(x)
+            acc = ki.conv_int8(xq, sx, conv.w_q, ws, b, packed=conv.w_frag,
+                               raw=True, **kw)
+            y = ki.conv_int8(xq, sx, conv.w_q, ws, b, packed=conv.w_frag,
+                             out_dtype=x.dtype, **kw)
+            pacc = ki.conv_int8_plain(pxq, psx, conv.w_q, ws, b, raw=True,
+                                      **kw)
+            py = ki.conv_int8_plain(pxq, psx, conv.w_q, ws, b,
+                                    out_dtype=x.dtype, **kw)
+        torch.cuda.synchronize()
+        same = {"codes": torch.equal(xq, pxq), "sx": torch.equal(sx, psx),
+                "int32 sums": torch.equal(acc, pacc),
+                "output": torch.equal(y, py)}
+        err = (y.float() - py.float()).abs().max().item()
+        i2_err = max(i2_err, err)
+        if not all(same.values()):
+            raise AssertionError(f"I1/I2 differ from their plain versions at "
+                                 f"{w_shape} on {x_shape}: {same}, {err}")
+        it = 10
+        with torch.inference_mode():
+            q_ms, q_plain, _ = timed(lambda: ki.quantize_act(x),
+                                     lambda: ki.quantize_act_plain(x), it)
+            c_ms, c_plain, _ = timed(
+                lambda: ki.conv_int8(xq, sx, conv.w_q, ws, b,
+                                     packed=conv.w_frag, out_dtype=x.dtype,
+                                     **kw),
+                lambda: ki.conv_int8_plain(xq, sx, conv.w_q, ws, b,
+                                           out_dtype=x.dtype, **kw), it)
+            # yardsticks: torch._int_mm over the im2col of the codes (the
+            # same int32 sums), and cuDNN's bf16 conv of the same shape
+            cols = F.unfold(xq[..., :cin].permute(0, 3, 1, 2).to(
+                torch.float16), (kh, kw_), padding=pad, stride=stride)
+            a_mat = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(
+                torch.int8).contiguous()
+            b_mat = conv.w_q.permute(2, 0, 1, 3).reshape(-1, cout).contiguous()
+            try:
+                mm = torch._int_mm(a_mat, b_mat)
+                mm_ms = _timing.event_ms(lambda: torch._int_mm(a_mat, b_mat),
+                                         it)
+                mm_same = torch.equal(mm.reshape(acc.shape), acc)
+            except RuntimeError as e:
+                mm_ms, mm_same, int_mm_ok = None, f"refused ({e})", False
+            xc = x.permute(0, 3, 1, 2)
+            dnn_ms = _timing.event_ms(lambda: F.conv2d(
+                xc, conv.conv.w, conv.conv.b, stride=stride, padding=pad), it)
+        q_bound, _ = _timing.bound_ms(ki.quantize_work(x_shape, 2),
+                                      peak=ki.PEAK_FP32_FLOPS)
+        work = ki.conv_int8_work(x_shape, w_shape, (stride, stride), pad)
+        c_bound, c_by = _timing.bound_ms(work, peak=ki.PEAK_INT8_OPS)
+        print(f"int8 {w_shape} on {x_shape} s{stride} p{pad} x{n} on {card}: "
+              f"codes, sx, int32 sums and output equal to the plain versions "
+              f"bit for bit; I1 {q_ms:.4f} ms (plain {q_plain:.4f}, bound "
+              f"{q_bound:.4f} bytes), I2 {c_ms:.4f} ms (plain {c_plain:.4f}, "
+              f"bound {c_bound:.4f} {c_by}, {work[0]} int8 ops), "
+              f"torch._int_mm on im2col {mm_ms} ms (sums equal: {mm_same}), "
+              f"cuDNN bf16 conv {dnn_ms:.4f} ms", flush=True)
+        for k, v in (("i1", q_ms), ("i1_plain", q_plain), ("i1_bound", q_bound),
+                     ("i2", c_ms), ("i2_plain", c_plain), ("i2_bound", c_bound),
+                     ("int_mm", mm_ms or 0.0), ("cudnn", dnn_ms)):
+            tot[k] += n * v
+        if c_by == "operations":
+            i2_ops_time += n * c_bound
+    print(f"int8 detector's {n_run} convs a step at ({BATCH}, {DET_HW[0]}, "
+          f"{DET_HW[1]}) on {card}, summed: I1 {tot['i1']:.4f} ms (plain "
+          f"{tot['i1_plain']:.4f}, bound {tot['i1_bound']:.4f}), I2 "
+          f"{tot['i2']:.4f} ms (plain {tot['i2_plain']:.4f}, bound "
+          f"{tot['i2_bound']:.4f}), torch._int_mm {tot['int_mm']:.4f} ms"
+          f"{'' if int_mm_ok else ' (refused at some shapes)'}, cuDNN bf16 "
+          f"{tot['cudnn']:.4f} ms", flush=True)
+    kernels.append({
+        "name": "quantize_act", "route": "cuda",
+        "source": "lpr_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "lpr_tpu/ops/nn.py:129", "launches": None,
+        "max_abs_err": 0.0, "ms": tot["i1"], "plain_ms": tot["i1_plain"],
+        "bound_ms": tot["i1_bound"], "bound_by": "bytes", "library_ms": None,
+    })
+    kernels.append({
+        "name": "conv_int8", "route": "cuda",
+        "source": "lpr_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "lpr_tpu/ops/nn.py:129", "launches": None,
+        "max_abs_err": i2_err, "ms": tot["i2"], "plain_ms": tot["i2_plain"],
+        "bound_ms": tot["i2_bound"],
+        "bound_by": ("operations" if i2_ops_time >= tot["i2_bound"] / 2
+                     else "bytes"),
+        "library_ms": tot["int_mm"] if int_mm_ok else None,
+    })
+    phase("int8", t, f"; {n_run} int8 convs a step, I1/I2 bit for bit at "
+          f"every shape")
+
+    # ---- 6. slice -------------------------------------------------------
+    from lpr_tpu_torch.pipeline.recognizer import (PipelineConfig,
+                                                   PlateRecognizer, to_host)
+
+    t = time.perf_counter()
+    char, names = load_char_ocr_npz(CKPT_CHAR)
     P = PipelineConfig().max_plates
     expect = {"plate_boxes": (BATCH, P, 4), "plate_scores": (BATCH, P),
               "plate_classes": (BATCH, P), "plate_valid": (BATCH, P),
@@ -669,12 +845,14 @@ def main() -> int:
         return all(identical(a[k], b[k]) if isinstance(a[k], dict)
                    else a[k] is None or torch.equal(a[k], b[k]) for k in a)
 
-    def drive(label, plain_head, need, **cfg_kw):
+    def drive(label, plain_head, need, plate_model=None, **cfg_kw):
         """The recognizer at the production configuration (and cfg_kw):
         its first step captures the graph; the launch counts are read
         around the second, a replay; the graph's outputs must be the eager
-        step's bit for bit; then both are timed."""
-        r = PlateRecognizer(plate, char, load_lpsr(CKPT_LPSR),
+        step's bit for bit; then both are timed.  Returns the recognizer,
+        its results, the counts and the replay's outputs on the host."""
+        r = PlateRecognizer(plate if plate_model is None else plate_model,
+                            char, load_lpsr(CKPT_LPSR),
                             PipelineConfig(det_hw=DET_HW,
                                            dtype=torch.bfloat16, **cfg_kw),
                             char_names=names)
@@ -690,8 +868,10 @@ def main() -> int:
         if not identical(o, r.step_eager(frames)):
             raise AssertionError(f"{label}: the graph's outputs differ "
                                  f"from the eager step's")
-        check_head(r, plain_head, label)
-        res = r.assemble(to_host(o))
+        if plain_head is not None:
+            check_head(r, plain_head, label)
+        host = to_host(o)
+        res = r.assemble(host)
         print(f"slice {label}: {sum(len(f) for f in res)} plates in {BATCH} "
               f"frames; first texts "
               f"{[p['text_sr'] for f in res for p in f][:6]}"
@@ -700,26 +880,66 @@ def main() -> int:
               f"to the eager step's, bit for bit", flush=True)
         throughput(r.step_raw, f"{label}, frozen (one CUDA graph)")
         throughput(r.step_eager, f"{label}, eager")
-        return r, res, c
+        return r, res, c, host
 
     # The default configuration (K1 and K2), the step frozen into a graph.
-    rec, results, slice_counts = drive(
+    rec, results, slice_counts, out_default = drive(
         "default", lambda r, lb: r.plate_model.forward_from(
             kf.front_plain(lb, r._front), 3), ("yolo_front", "lpsr"))
     # packed_input: the host letterbox, K1's uint8 instance, K2.
-    rec_packed, results_packed, packed_counts = drive(
+    rec_packed, results_packed, packed_counts, _ = drive(
         "packed_input", lambda r, lb: r.plate_model.forward_from(
             kf.front_plain(lb, r._front), 3), ("yolo_front_u8", "lpsr"),
         packed_input=True)
     # fused_mid: K1, K3 and K2.
-    _, _, mid_counts = drive(
+    _, _, mid_counts, _ = drive(
         "fused_mid", lambda r, lb: r.plate_model.forward_from(
             km.mid_plain(kf.front_plain(lb, r._front), r._mid), 5),
         ("yolo_front", "yolo_mid", "lpsr"), fused_mid=True)
+    # int8_detector: K1 (float), then I1 + I2 for every quantized conv,
+    # K2; quantized from a float32 detector as the recognizer does it.  Its
+    # plates and strings beside the bf16 recognizer's: the boxes of frames
+    # whose plates are valid in both held to the JAX test's 6 px
+    # (tests/test_pipeline.py:238-262), the rest reported.
+    _, results_int8, int8_counts, out_int8 = drive(
+        "int8_detector", None, ("yolo_front", "quantize_act", "conv_int8",
+                                "lpsr"),
+        plate_model=load_plate_detector(CKPT_PLATE), int8_detector=True)
+    same_valid = (out_int8["plate_valid"] == out_default["plate_valid"]
+                  ).all(axis=1)
+    d_box = max((float(np.abs(out_int8["plate_boxes"][i][v]
+                              - out_default["plate_boxes"][i][v]).max())
+                 for i, v in enumerate(out_default["plate_valid"])
+                 if same_valid[i] and v.any()), default=0.0)
+    print(f"slice int8_detector beside bf16 on {card}: plate_valid equal in "
+          f"{int(same_valid.sum())} of {BATCH} frames; box max diff "
+          f"{d_box:.3f} px there (< 6); strings int8 "
+          f"{[(p['text'], p['text_sr']) for f in results_int8 for p in f]}"
+          f" against bf16 "
+          f"{[(p['text'], p['text_sr']) for f in results for p in f]}",
+          flush=True)
+    if d_box >= 6.0:
+        raise AssertionError(f"int8 boxes {d_box} px from the bf16 ones")
+    # lazy_decode=False: the whole grid decoded, nms_batched; held to the
+    # lazy step's boxes and scores within 1e-3 (tests/test_yolo.py:163-195).
+    _, _, eager_counts, out_eager = drive(
+        "lazy_decode=False", lambda r, lb: r.plate_model.forward_from(
+            kf.front_plain(lb, r._front), 3), ("yolo_front", "lpsr"),
+        lazy_decode=False)
+    if not (out_eager["plate_valid"] == out_default["plate_valid"]).all():
+        raise AssertionError("lazy_decode=False: plate_valid differs")
+    d_eager = max(float(np.abs(out_eager[k] - out_default[k]).max())
+                  for k in ("plate_boxes", "plate_scores"))
+    print(f"slice lazy_decode=False beside the lazy step: plate_valid "
+          f"equal, boxes and scores max diff {d_eager} (< 1e-3)", flush=True)
+    if d_eager >= 1e-3:
+        raise AssertionError(f"lazy_decode=False differs from the lazy step "
+                             f"by {d_eager}")
     phase("slice", t, f"; launches default {slice_counts}, packed_input "
-          f"{packed_counts}, fused_mid {mid_counts}")
+          f"{packed_counts}, fused_mid {mid_counts}, int8 {int8_counts}, "
+          f"lazy_decode=False {eager_counts}")
 
-    # ---- 6. stages ------------------------------------------------------
+    # ---- 7. stages ------------------------------------------------------
     from lpr_tpu_torch.tools import profile_stages
 
     t = time.perf_counter()
@@ -739,7 +959,7 @@ def main() -> int:
               flush=True)
     phase("stages", t)
 
-    # ---- 7. serve -------------------------------------------------------
+    # ---- 8. serve -------------------------------------------------------
     from lpr_tpu_torch.serve.server import InferenceServer, ServeConfig
 
     t = time.perf_counter()
@@ -878,7 +1098,7 @@ def main() -> int:
     phase("serve", t, f"; {len(served)} requests, launches {serve_counts}; "
           f"further paths {path_counts}")
 
-    # ---- 8. serving -----------------------------------------------------
+    # ---- 9. serving -----------------------------------------------------
     from lpr_tpu_torch.tools import bench_serving
 
     t = time.perf_counter()
@@ -890,26 +1110,35 @@ def main() -> int:
             raise AssertionError(f"bench_serving {m}")
     phase("serving", t, f"; modes {[m or ['frames'] for m in modes]}")
 
-    # ---- 9. bench -------------------------------------------------------
+    # ---- 10. bench -------------------------------------------------------
     from lpr_tpu_torch import bench
 
     t = time.perf_counter()
     bench_counts = {}
-    for mode in ("1", "0"):
-        os.environ.update({"BENCH_PACKED": mode, "BENCH_REPS": "2",
-                           "BENCH_BATCH": "32", "BENCH_STEPS": "30"})
+    for mode, int8 in (("1", "0"), ("0", "0"), ("1", "1")):
+        os.environ.update({"BENCH_PACKED": mode, "BENCH_INT8": int8,
+                           "BENCH_REPS": "2", "BENCH_BATCH": "32",
+                           "BENCH_STEPS": "30"})
         counts_to_zero()
         if bench.main([]) != 0:
-            raise AssertionError(f"lpr_tpu_torch.bench BENCH_PACKED={mode}")
-        bench_counts[mode] = counts()
-    phase("bench", t, f"; launches packed {bench_counts['1']}, raw "
-          f"{bench_counts['0']}")
+            raise AssertionError(f"lpr_tpu_torch.bench BENCH_PACKED={mode} "
+                                 f"BENCH_INT8={int8}")
+        bench_counts[(mode, int8)] = counts()
+    if min(bench_counts[("1", "1")][k] for k in ("quantize_act",
+                                                  "conv_int8")) < 1:
+        raise AssertionError(f"BENCH_INT8=1 did not launch I1 and I2: "
+                             f"{bench_counts[('1', '1')]}")
+    phase("bench", t, f"; launches packed {bench_counts[('1', '0')]}, raw "
+          f"{bench_counts[('0', '0')]}, packed int8 "
+          f"{bench_counts[('1', '1')]}")
 
     by_name = {k["name"]: k for k in kernels}
     by_name["yolo_front"]["launches"] = serve_counts["yolo_front"]
     by_name["yolo_front_u8"]["launches"] = packed_counts["yolo_front_u8"]
     by_name["lpsr"]["launches"] = serve_counts["lpsr"]
     by_name["yolo_mid"]["launches"] = mid_counts["yolo_mid"]
+    by_name["quantize_act"]["launches"] = int8_counts["quantize_act"]
+    by_name["conv_int8"]["launches"] = int8_counts["conv_int8"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

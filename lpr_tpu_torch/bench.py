@@ -17,8 +17,8 @@ Environment switches, as the root bench's: ``BENCH_PACKED`` (default 1:
 ``packed_input``, the host-letterboxed uint8 detector input), ``BENCH_REPS``
 (4), ``BENCH_MFU`` (1: count the FLOPs), ``BENCH_BATCH`` (32),
 ``BENCH_STEPS`` (30), ``BENCH_RECT`` (1: detector height snapped to the
-frame's aspect); ``BENCH_INT8=1`` raises, ``int8_detector`` not being
-ported.
+frame's aspect), ``BENCH_INT8`` (0; 1: ``int8_detector``, the detector's
+convolutions after K1 in int8 through kernels I1 and I2).
 
 Prints the card's name and power limit (``card: ...``), then one JSON
 line with the root bench's keys: ``metric``, ``value``
@@ -28,7 +28,8 @@ power limit under ``gpu``.  FLOPs per step are counted, not timed:
 ``torch.utils.flop_counter.FlopCounterMode`` counts the convolutions and
 matrix products of one eager step, and on a card the hand-written kernels,
 which it cannot see, add their own counts (``front_work``, ``mid_work``,
-``lpsr_work``).  On the CPU (``--device cpu``) the counter sees the
+``lpsr_work``, and I2's int8 operations, ``conv_int8_work``, counted as
+FLOPs against the bf16 peak as the root bench counts them).  On the CPU (``--device cpu``) the counter sees the
 kernels' plain versions instead, and no device figure is measured: the
 run checks the program and prints ``value`` and ``mfu_pct`` as null.
 Run from the repo root.
@@ -64,13 +65,31 @@ def step_flops(rec, frames: torch.Tensor, packed) -> int:
     on a card the work of the kernels it launched through ctypes."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from lpr_tpu_torch.kernels.conv_int8 import conv_int8_work
     from lpr_tpu_torch.kernels.lpsr import lpsr_work
     from lpr_tpu_torch.kernels.yolo_front import front_work
     from lpr_tpu_torch.kernels.yolo_mid import mid_work
+    from lpr_tpu_torch.models.yolo import quantized_convs
+    from lpr_tpu_torch.ops.nn import _resolve_padding
 
-    with FlopCounterMode(display=False) as counter:
-        rec.step_eager(frames, packed)
-    flops = counter.get_total_flops()
+    int8_ops = []
+
+    def count_int8(conv, args):
+        c = conv.conv
+        int8_ops.append(conv_int8_work(
+            args[0].shape, conv.w_q.shape, (c.stride, c.stride),
+            _resolve_padding(c.padding, *conv.w_q.shape[:2]))[0])
+
+    hooks = ([m.register_forward_pre_hook(count_int8) for m in
+              quantized_convs(rec.plate_model).values()]
+             if rec.device.type == "cuda" else [])
+    try:
+        with FlopCounterMode(display=False) as counter:
+            rec.step_eager(frames, packed)
+    finally:
+        for h in hooks:
+            h.remove()
+    flops = counter.get_total_flops() + sum(int8_ops)
     if rec.device.type == "cuda":
         B = int(frames.shape[0])
         h, w = rec.cfg.det_hw
@@ -91,9 +110,6 @@ def main(argv=None) -> int:
     ap.add_argument("--frame-hw", type=int, nargs=2, default=FRAME_HW)
     ap.add_argument("--det-w", type=int, default=1280)
     args = ap.parse_args(argv)
-    if os.environ.get("BENCH_INT8") == "1":
-        raise NotImplementedError("BENCH_INT8: int8_detector is not ported "
-                                  "to lpr_tpu_torch yet")
 
     from lpr_tpu_torch.device import resolve_device
     from lpr_tpu_torch.tools import _timing
@@ -105,11 +121,12 @@ def main(argv=None) -> int:
     steps = int(os.environ.get("BENCH_STEPS", "30"))
     reps = int(os.environ.get("BENCH_REPS", "4"))
     packed_mode = os.environ.get("BENCH_PACKED", "1") == "1"
+    int8 = os.environ.get("BENCH_INT8", "0") == "1"
     frame_hw = tuple(args.frame_hw)
     hw = det_hw(frame_hw, args.det_w, os.environ.get("BENCH_RECT", "1") == "1")
     rec = build_recognizer(dev, torch.bfloat16, hw,
                            freeze_params=not args.eager,
-                           packed_input=packed_mode)
+                           packed_input=packed_mode, int8_detector=int8)
 
     # one batch on the device, tiled over the steps
     one = synth_frames(batch, frame_hw, seed=0)
@@ -148,6 +165,7 @@ def main(argv=None) -> int:
                              if on_card else None)
     record.update({
         "gpu": _timing.card(dev), "packed_input": packed_mode,
+        "int8_detector": int8,
         "freeze_params": not args.eager, "batch": batch, "steps": steps,
         "frame_hw": list(frame_hw), "det_hw": list(hw), "run_ms": run_ms,
     })

@@ -1,14 +1,21 @@
-"""YOLOv5-family detectors (counterpart of ``lpr_tpu/models/yolo.py``),
-main-path subset: the plate detector (yolov5s, nc=11, 3 scales) and the char
-OCR model (Focus/SPP/C3TR, stride 8).
+"""YOLOv5-family detectors (counterpart of ``lpr_tpu/models/yolo.py``): the
+plate detector (yolov5s, nc=11, 3 scales), the char OCR model
+(Focus/SPP/C3TR, stride 8) and the rest of the JAX package's zoo.
 
 The same spec grammar and builder (rows of ``[from, number, module, args]``
 with depth/width multiples) produce a :class:`YoloModel` of
-``torch.nn.Module`` layers.  Weights come from the repo's flat npz state
-(:mod:`lpr_tpu_torch.weights.checkpoint`), with batch norm folded into the
-convolutions at load time (``fuse_conv_bn``, eps 1e-3): the port runs
+``torch.nn.Module`` layers, for every module name of the JAX builder
+(Conv, DWConv, Focus, Bottleneck, BottleneckCSP, C3, C3TR, C3SPP, C3Ghost,
+GhostConv, GhostBottleneck, SPP, SPPF, Concat, Contract, Expand,
+nn.Upsample, Detect, Classify), and the named sizes yolov5{n,s,m,l,x} with
+their P6 variants (:func:`yolov5`).  Weights come from the repo's flat npz
+state (:mod:`lpr_tpu_torch.weights.checkpoint`), with batch norm folded into
+the convolutions at load time (``fuse_conv_bn``, eps 1e-3): the port runs
 inference only.  Activations are NHWC throughout; ``Detect`` returns the
-raw per-scale logits ``(B, na, ny, nx, 5+nc)`` for lazy-decode NMS.
+raw per-scale logits ``(B, na, ny, nx, 5+nc)`` for lazy-decode NMS, and
+with ``decode=True`` also the decoded ``(B, N, 5+nc)`` predictions.
+:func:`quantize_yolo` gives the detector its int8 form
+(``PipelineConfig.int8_detector``).
 """
 
 from __future__ import annotations
@@ -43,8 +50,20 @@ def _folded(state: State, prefix: str):
     return w, b
 
 
+_ACTS = {"silu": tnn.silu, "leaky": lambda y: tnn.leaky_relu(y, 0.1),
+         "none": lambda y: y}
+
+
 class ConvAct(torch.nn.Module):
-    """Conv(+folded BN)+SiLU, the JAX package's ``_conv``."""
+    """Conv(+folded BN)+activation, the JAX package's ``_conv``.
+
+    :meth:`quantize` adds the int8 form of the weight (``quantize_yolo``'s
+    ``w_q``/``w_s``/``b``); from then on the layer runs
+    :func:`tnn.conv2d_int8` (``lpr_tpu/models/yolo.py:82-96``).  The float
+    weight stays beside it, for the K1 and K3 packs (``int8_detector``
+    quantizes after they are built from the float weights, as the JAX
+    recognizer does).  The float32 scale and bias are held as int32 bit
+    views, so that casting the model to bf16 leaves them as they are."""
 
     def __init__(self, state: State, prefix: str, *, k: int, stride: int = 1,
                  pad=None, groups: int = 1, act: str = "silu"):
@@ -54,10 +73,47 @@ class ConvAct(torch.nn.Module):
             w, b, stride=stride, padding=k // 2 if pad is None else pad,
             groups=groups)
         self.act = act
+        self.prefix = prefix
+        self.quantized = False
+
+    def int8_eligible(self, min_contract: int = 64) -> bool:
+        """``quantize_yolo``'s rule on the HWIO weight: Cin/groups > 1 and
+        kh * kw * Cin/groups >= ``min_contract``."""
+        _, cig, kh, kw = self.conv.w.shape
+        return cig > 1 and kh * kw * cig >= min_contract
+
+    def quantize(self) -> None:
+        """Quantize the weight the layer holds (float32 as loaded) per
+        output channel (:func:`tnn.quantize_conv_weight`); a second call
+        keeps the first codes."""
+        from lpr_tpu_torch.kernels.conv_int8 import int8_pack
+
+        if self.quantized:
+            return
+        dev = self.conv.w.device
+        w = self.conv.w.detach().float().permute(2, 3, 1, 0).cpu().numpy()
+        wq, ws = tnn.quantize_conv_weight(w)
+        self.register_buffer("w_q", torch.from_numpy(wq).to(dev))
+        self.register_buffer("w_frag", int8_pack(wq).to(dev))
+        self.register_buffer("w_s_bits",
+                             torch.from_numpy(ws).view(torch.int32).to(dev))
+        b = self.conv.b
+        self.register_buffer("b_bits", None if b is None else (
+            b.detach().float().clone().view(torch.int32)))
+        self.quantized = True
 
     def forward(self, x: Tensor) -> Tensor:
-        y = self.conv(x)
-        return tnn.silu(y) if self.act == "silu" else y
+        if self.quantized:
+            c = self.conv
+            y = tnn.conv2d_int8(
+                x, self.w_q, self.w_s_bits.view(torch.float32),
+                None if self.b_bits is None else
+                self.b_bits.view(torch.float32),
+                stride=c.stride, padding=c.padding, groups=c.groups,
+                packed=self.w_frag)
+        else:
+            y = self.conv(x)
+        return _ACTS[self.act](y)
 
 
 class Layer(torch.nn.Module):
@@ -95,6 +151,14 @@ class Conv(Layer):
         if self._is_s2d_stem():
             x = tnn.pixel_unshuffle(x, 2)
         return self.cv(x)
+
+
+class DWConv(Conv):
+    """Depthwise conv: groups = gcd(c1, c2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 pad: Optional[int] = None, act: str = "silu"):
+        super().__init__(c1, c2, k, s, pad, math.gcd(c1, c2), act)
 
 
 class Focus(Layer):
@@ -148,6 +212,106 @@ class C3(Layer):
     def forward(self, x):
         y1 = self.m(self.cv1(x))
         return self.cv3(torch.cat([y1, self.cv2(x)], -1))
+
+
+class BottleneckLayer(Layer):
+    """The builder's ``Bottleneck`` module: the residual applies only where
+    c1 == c2, as in the JAX builder."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1):
+        super().__init__()
+        self.c1, self.c2, self.shortcut, self.g = c1, c2, shortcut, g
+
+    def load(self, state, prefix):
+        self.b = Bottleneck(state, prefix, self.shortcut and self.c1 == self.c2,
+                            self.g)
+
+    def forward(self, x):
+        return self.b(x)
+
+
+class BottleneckCSP(Layer):
+    """v4-style CSP bottleneck: bias-free cv2/cv3 without BN, a standalone
+    batch norm (eps 1e-5) and SiLU on their concat, then cv4."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c1, self.c2, self.n, self.shortcut, self.g, self.e = (
+            c1, c2, n, shortcut, g, e)
+
+    def load(self, state, prefix):
+        self.cv1 = ConvAct(state, f"{prefix}/cv1", k=1)
+        self.cv2 = ConvAct(state, f"{prefix}/cv2", k=1, pad=0, act="none")
+        self.cv3 = ConvAct(state, f"{prefix}/cv3", k=1, pad=0, act="none")
+        self.cv4 = ConvAct(state, f"{prefix}/cv4", k=1)
+        self.m = torch.nn.Sequential(*[
+            Bottleneck(state, f"{prefix}/m/{j}", self.shortcut, self.g)
+            for j in range(self.n)])
+        bn = {k: np.asarray(state[f"{prefix}/bn/{k}"], np.float32)
+              for k in ("gamma", "beta", "mean", "var")}
+        scale = bn["gamma"] / np.sqrt(bn["var"] + np.float32(1e-5))
+        _buffer(self, "bn_scale", scale)
+        _buffer(self, "bn_shift", bn["beta"] - bn["mean"] * scale)
+
+    def forward(self, x):
+        y1 = self.cv3(self.m(self.cv1(x)))
+        cat = torch.cat([y1, self.cv2(x)], -1)
+        cat = cat * self.bn_scale.to(cat.dtype) + self.bn_shift.to(cat.dtype)
+        return self.cv4(tnn.silu(cat))
+
+
+class GhostConv(Layer):
+    """Ghost conv: a k x k conv to c2/2 channels, then a 5x5 depthwise
+    "cheap" conv of it, concatenated; ``act`` applies to both."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 act: str = "silu"):
+        super().__init__()
+        self.c1, self.c2, self.k, self.s, self.act = c1, c2, k, s, act
+
+    def load(self, state, prefix):
+        c_ = self.c2 // 2
+        self.cv1 = ConvAct(state, f"{prefix}/cv1", k=self.k, stride=self.s,
+                           act=self.act)
+        self.cv2 = ConvAct(state, f"{prefix}/cv2", k=5, groups=c_,
+                           act=self.act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], -1)
+
+
+class GhostBottleneck(Layer):
+    """Ghost bottleneck: GhostConv (SiLU), a k x k depthwise stride-2 conv
+    when s == 2, GhostConv without activation (the reference's pw-linear
+    ``act=False``), plus the identity or, at s == 2, a depthwise + 1x1
+    shortcut, both linear."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        self.c1, self.c2, self.k, self.s = c1, c2, k, s
+
+    def load(self, state, prefix):
+        c_ = self.c2 // 2
+        self.g1 = GhostConv(self.c1, c_, 1, 1)
+        self.g1.load(state, f"{prefix}/g1")
+        self.g2 = GhostConv(c_, self.c2, 1, 1, act="none")
+        self.g2.load(state, f"{prefix}/g2")
+        if self.s == 2:
+            self.dw = ConvAct(state, f"{prefix}/dw", k=self.k, stride=2,
+                              groups=c_, act="none")
+            self.sc_dw = ConvAct(state, f"{prefix}/sc_dw", k=self.k,
+                                 stride=2, groups=self.c1, act="none")
+            self.sc_pw = ConvAct(state, f"{prefix}/sc_pw", k=1, act="none")
+
+    def forward(self, x):
+        y = self.g1(x)
+        if self.s == 2:
+            y = self.dw(y)
+        y = self.g2(y)
+        sc = self.sc_pw(self.sc_dw(x)) if self.s == 2 else x
+        return y + sc
 
 
 class SPP(Layer):
@@ -252,6 +416,76 @@ class C3TR(C3):
         self.m = TransformerBlockL(state, f"{prefix}/m", c_, 4, self.n)
 
 
+class C3SPP(C3):
+    """C3 with an SPP inner."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5, k: Tuple[int, ...] = (5, 9, 13)):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.k = tuple(k)
+
+    def load_inner(self, state, prefix):
+        c_ = int(self.c2 * self.e)
+        self.m = SPP(c_, c_, self.k)
+        self.m.load(state, f"{prefix}/m")
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottleneck inners."""
+
+    def load_inner(self, state, prefix):
+        c_ = int(self.c2 * self.e)
+        blocks = []
+        for j in range(self.n):
+            gb = GhostBottleneck(c_, c_)
+            gb.load(state, f"{prefix}/m/{j}")
+            blocks.append(gb)
+        self.m = torch.nn.Sequential(*blocks)
+
+
+class Classify(Layer):
+    """Classification head: global average pool (of each input, then
+    concatenated, for a list), a 1x1 conv with bias, flattened."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.c1, self.c2, self.k, self.s = c1, c2, k, s
+
+    def load(self, state, prefix):
+        self.cv = ConvAct(state, prefix, k=self.k, stride=self.s, pad=0,
+                          act="none")
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat([tnn.global_avg_pool(xi) for xi in x], -1)
+        else:
+            x = tnn.global_avg_pool(x)
+        y = self.cv(x[:, None, None, :])
+        return y.reshape(y.shape[0], -1)
+
+
+class Contract(Layer):
+    """W x H -> channels (space-to-depth by ``gain``)."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        return tnn.pixel_unshuffle(x, self.gain)
+
+
+class Expand(Layer):
+    """Channels -> W x H (depth-to-space by ``gain``)."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        return tnn.pixel_shuffle(x, self.gain)
+
+
 class Upsample(Layer):
     def __init__(self, scale: int = 2):
         super().__init__()
@@ -267,14 +501,21 @@ class Concat(Layer):
 
 
 class Detect(Layer):
-    """Detection head, raw output: per level a 1x1 conv reshaped to
-    (B, na, ny, nx, 5+nc) logits (torch's anchor-major order)."""
+    """Detection head: per level a 1x1 conv reshaped to (B, na, ny, nx,
+    5+nc) logits (torch's anchor-major order).  With ``decode=True`` it
+    returns ``(pred, raws)``: pred (B, N, 5+nc) concatenates each level's
+    sigmoids decoded to pixels, xy = (2s - 0.5 + grid) * stride, wh =
+    (2s)^2 * anchor, in the logits' dtype (``lpr_tpu/models/yolo.py:822-849``).
+    The grid and anchor tables are built once per level, dtype and device,
+    so a captured step uploads none."""
 
-    def __init__(self, nc: int, anchors):
+    def __init__(self, nc: int, anchors, strides: Sequence[int] = ()):
         super().__init__()
         self.anchors = np.asarray(anchors, np.float32)  # (nl, na, 2) grid
         self.nl, self.na = self.anchors.shape[:2]
         self.no = nc + 5
+        self.strides = tuple(strides)
+        self._tables: Dict[Any, Tuple[Tensor, Tensor]] = {}
 
     def load(self, state, prefix):
         self.m = torch.nn.ModuleList([
@@ -282,15 +523,38 @@ class Detect(Layer):
                                  state[f"{prefix}/m/{l}/b"], padding=0)
             for l in range(self.nl)])
 
-    def forward(self, xs) -> List[Tensor]:
+    @torch.inference_mode(False)
+    def _grid_anchors(self, l: int, ny: int, nx: int, dtype, device):
+        key = (l, ny, nx, dtype, device)
+        if key not in self._tables:
+            gy, gx = torch.meshgrid(
+                torch.arange(ny, device=device).to(dtype),
+                torch.arange(nx, device=device).to(dtype), indexing="ij")
+            anc = torch.from_numpy(self.anchors[l] * np.float32(
+                self.strides[l])).to(device, dtype)
+            self._tables[key] = (torch.stack([gx, gy], -1),
+                                 anc[None, :, None, None, :])
+        return self._tables[key]
+
+    def forward(self, xs, decode: bool = False):
         if not isinstance(xs, (list, tuple)):
             xs = [xs]
-        raws = []
-        for conv, x in zip(self.m, xs):
+        raws, outs = [], []
+        for l, (conv, x) in enumerate(zip(self.m, xs)):
             y = conv(x)
             B, ny, nx, _ = y.shape
-            raws.append(y.reshape(B, ny, nx, self.na, self.no)
-                        .permute(0, 3, 1, 2, 4))
+            y = y.reshape(B, ny, nx, self.na, self.no).permute(0, 3, 1, 2, 4)
+            raws.append(y)
+            if decode:
+                s = float(self.strides[l])
+                grid, anc = self._grid_anchors(l, ny, nx, y.dtype, y.device)
+                sig = torch.sigmoid(y)
+                xy = (sig[..., 0:2] * 2.0 - 0.5 + grid) * s
+                wh = (sig[..., 2:4] * 2.0) ** 2 * anc
+                out = torch.cat([xy, wh, sig[..., 4:]], -1)
+                outs.append(out.reshape(B, self.na * ny * nx, self.no))
+        if decode:
+            return torch.cat(outs, 1), raws
         return raws
 
 
@@ -309,7 +573,9 @@ class YoloSpec:
 
 class YoloModel(torch.nn.Module):
     """A built layer plan.  ``forward(x)`` maps an NHWC batch to the raw
-    per-scale Detect logits.  Call :meth:`load_state` before use."""
+    per-scale Detect logits, ``forward(x, decode=True)`` to ``(pred,
+    raws)`` as the JAX ``apply`` does.  Call :meth:`load_state` before
+    use."""
 
     def __init__(self, spec: YoloSpec, layers: List[Layer], save: List[int],
                  strides: Tuple[int, ...], anchors_grid: np.ndarray):
@@ -320,13 +586,17 @@ class YoloModel(torch.nn.Module):
         self.strides = strides
         self.anchors = anchors_grid  # (nl, na, 2) grid units
 
+    @property
+    def nc(self) -> int:
+        return self.spec.nc
+
     def load_state(self, state: State) -> "YoloModel":
         for l in self.layers:
             l.load(state, str(l.i))
         return self
 
     def forward(self, x: Optional[Tensor], front=None, mid=None,
-                packed: Optional[Tensor] = None) -> List[Tensor]:
+                packed: Optional[Tensor] = None, decode: bool = False):
         """``front``: packed weights from
         :func:`lpr_tpu_torch.kernels.yolo_front.front_pack` — layers 0-2 then
         run as the fused front kernel K1 (``lpr_tpu/models/yolo.py:975-986``);
@@ -336,7 +606,9 @@ class YoloModel(torch.nn.Module):
         ``input_scale=1/255``): the letterboxed uint8 frames (B, H, W, 3)
         (:func:`lpr_tpu_torch.ops.image.letterbox_host`), which K1 takes in
         place of ``x`` (ignored, may be None), the counterpart of
-        ``apply(..., packed_frames=, packed_hw=)`` (``:938-986``)."""
+        ``apply(..., packed_frames=, packed_hw=)`` (``:938-986``).
+        ``decode``: the Detect head's decoded predictions as well
+        (:class:`Detect`)."""
         if packed is not None:
             if front is None:
                 raise ValueError("packed frames go through the fused front: "
@@ -346,18 +618,18 @@ class YoloModel(torch.nn.Module):
             if mid is not None:
                 raise ValueError("the fused mid runs on the fused front's "
                                  "output: pass front as well")
-            return self.forward_from(x, 0)
+            return self.forward_from(x, 0, decode=decode)
         from lpr_tpu_torch.kernels.yolo_front import yolo_front
 
         y = yolo_front(x, front)
         if mid is None:
-            return self.forward_from(y, 3)
+            return self.forward_from(y, 3, decode=decode)
         from lpr_tpu_torch.kernels.yolo_mid import yolo_mid
 
-        return self.forward_from(yolo_mid(y, mid), 5)
+        return self.forward_from(yolo_mid(y, mid), 5, decode=decode)
 
-    def forward_from(self, y, start: int,
-                     stop: Optional[int] = None) -> List[Tensor]:
+    def forward_from(self, y, start: int, stop: Optional[int] = None,
+                     decode: bool = False):
         """Run layers ``start:stop`` on ``y``, the output of layer
         ``start - 1`` (kept as that layer's saved output where a later
         layer reads it; no earlier saved output may be needed), and return
@@ -374,24 +646,61 @@ class YoloModel(torch.nn.Module):
                     y = saved[l.f % n]
                 else:
                     y = [y if j == -1 else saved[j % n] for j in l.f]
-            y = l(y)
+            y = l(y, decode=decode) if isinstance(l, Detect) else l(y)
             if l.i in self.save:
                 saved[l.i] = y
         return y
 
 
+def quantize_yolo(model: YoloModel, min_contract: int = 64) -> YoloModel:
+    """Post-training int8 quantization of a detector's convolutions, in
+    place (``lpr_tpu/models/yolo.py:1018-1072``): every eligible conv gets
+    per-output-channel int8 weights of its BN-folded float weight and runs
+    :func:`tnn.conv2d_int8`, activations quantized per tensor at run time.
+    Skipped, as in the JAX package: the Detect head; the S2D stem conv (and
+    the S2D downsamplers, off in the JAX package); depthwise convs and any
+    conv with Cin/groups == 1; convs with K = kh * kw * Cin/groups <
+    ``min_contract``.  Quantize the float32 weights as loaded (the
+    recognizer does so before it casts the model to its dtype); a conv
+    already quantized keeps its codes.  Returns ``model``."""
+    for layer in model.layers:
+        if isinstance(layer, Detect) or (isinstance(layer, Conv)
+                                         and layer._is_s2d_stem()):
+            continue
+        for m in layer.modules():
+            if isinstance(m, ConvAct) and m.int8_eligible(min_contract):
+                m.quantize()
+    return model
+
+
+def quantized_convs(model: YoloModel) -> Dict[str, ConvAct]:
+    """The model's quantized convs by checkpoint path (``2/m/0/cv2``)."""
+    return {m.prefix: m for m in model.modules()
+            if isinstance(m, ConvAct) and m.quantized}
+
+
 _MODULES = {
-    "Conv": Conv, "Focus": Focus, "C3": C3, "C3TR": C3TR, "SPP": SPP,
-    "SPPF": SPPF, "Concat": Concat, "nn.Upsample": Upsample,
-    "Upsample": Upsample, "Detect": Detect,
+    "Conv": Conv, "DWConv": DWConv, "Focus": Focus,
+    "Bottleneck": BottleneckLayer, "BottleneckCSP": BottleneckCSP, "C3": C3,
+    "C3TR": C3TR, "C3SPP": C3SPP, "C3Ghost": C3Ghost,
+    "GhostConv": GhostConv, "GhostBottleneck": GhostBottleneck, "SPP": SPP,
+    "SPPF": SPPF, "Concat": Concat, "Contract": Contract, "Expand": Expand,
+    "nn.Upsample": Upsample, "Upsample": Upsample, "Detect": Detect,
+    "Classify": Classify,
 }
+_WIDTH_SCALED = (Conv, DWConv, Focus, BottleneckLayer, GhostBottleneck, SPP,
+                 SPPF, GhostConv, BottleneckCSP, C3, C3TR, C3SPP, C3Ghost)
+
+
+def _arg(args, i, default):
+    return args[i] if len(args) > i else default
 
 
 def build_yolo(spec: YoloSpec, ckpt_anchors: Optional[np.ndarray] = None,
                strides: Optional[Sequence[int]] = None) -> YoloModel:
     """The ``parse_model`` equivalent: width/depth scaling, from-index
-    wiring and channel propagation (``lpr_tpu/models/yolo.py`` build_yolo),
-    for the modules of the main path."""
+    wiring and channel propagation, for every module name of the JAX
+    builder (``lpr_tpu/models/yolo.py:1075-1175``)."""
     gd, gw = spec.depth_multiple, spec.width_multiple
     ch = [spec.ch]
     layers: List[Layer] = []
@@ -399,33 +708,43 @@ def build_yolo(spec: YoloSpec, ckpt_anchors: Optional[np.ndarray] = None,
     for i, (f, n, mname, args) in enumerate(list(spec.backbone)
                                             + list(spec.head)):
         if mname not in _MODULES:
-            raise ValueError(f"module {mname!r} is not ported")
+            raise ValueError(f"unknown module {mname!r}")
         cls = _MODULES[mname]
         n_scaled = max(round(n * gd), 1) if n > 1 else n
         c1 = ch[f if isinstance(f, int) else f[0]]
-        if cls in (Conv, Focus, SPP, SPPF, C3, C3TR):
+        if cls in _WIDTH_SCALED:
             c2 = make_divisible(args[0] * gw, 8)
-            if cls in (C3, C3TR):
-                lay = cls(c1, c2, n=n_scaled,
-                          shortcut=args[1] if len(args) > 1 else True)
+            if cls is C3SPP:
+                lay = C3SPP(c1, c2, n=n_scaled,
+                            k=tuple(_arg(args, 1, (5, 9, 13))))
+            elif cls in (BottleneckCSP, C3, C3TR, C3Ghost):
+                lay = cls(c1, c2, n=n_scaled, shortcut=_arg(args, 1, True))
             elif cls is SPP:
-                lay = SPP(c1, c2, tuple(args[1]) if len(args) > 1
-                          else (5, 9, 13))
+                lay = SPP(c1, c2, tuple(_arg(args, 1, (5, 9, 13))))
             elif cls is SPPF:
-                lay = SPPF(c1, c2, args[1] if len(args) > 1 else 5)
-            elif cls is Conv:
-                lay = Conv(c1, c2, args[1] if len(args) > 1 else 1,
-                           args[2] if len(args) > 2 else 1,
-                           args[3] if len(args) > 3 else None)
-            else:
-                lay = Focus(c1, c2, args[1] if len(args) > 1 else 1,
-                            args[2] if len(args) > 2 else 1)
+                lay = SPPF(c1, c2, _arg(args, 1, 5))
+            elif cls in (Conv, DWConv):
+                lay = cls(c1, c2, _arg(args, 1, 1), _arg(args, 2, 1),
+                          _arg(args, 3, None))
+            elif cls in (Focus, GhostConv):
+                lay = cls(c1, c2, _arg(args, 1, 1), _arg(args, 2, 1))
+            elif cls is GhostBottleneck:
+                lay = cls(c1, c2, _arg(args, 1, 3), _arg(args, 2, 1))
+            else:  # BottleneckLayer
+                lay = cls(c1, c2, _arg(args, 1, True))
         elif cls is Concat:
             c2 = sum(ch[j] for j in f)
             lay = Concat()
         elif cls is Upsample:
             c2 = c1
-            lay = Upsample(int(args[1]) if len(args) > 1 else 2)
+            lay = Upsample(int(_arg(args, 1, 2)))
+        elif cls in (Contract, Expand):
+            g = args[0] if args else 2
+            c2 = c1 * g * g if cls is Contract else c1 // (g * g)
+            lay = cls(g)
+        elif cls is Classify:
+            c2 = args[0]
+            lay = Classify(c1, c2)
         else:  # Detect
             if strides is None:
                 raise ValueError("Detect needs strides")
@@ -437,7 +756,7 @@ def build_yolo(spec: YoloSpec, ckpt_anchors: Optional[np.ndarray] = None,
                 a = np.asarray(spec.anchors, np.float32).reshape(len(f), -1, 2)
                 st = np.asarray(strides, np.float32).reshape(-1, 1, 1)
                 anchors_grid = a / st
-            lay = Detect(spec.nc, anchors_grid)
+            lay = Detect(spec.nc, anchors_grid, strides)
             c2 = c1
         lay.i, lay.f = i, f
         layers.append(lay)
@@ -447,8 +766,8 @@ def build_yolo(spec: YoloSpec, ckpt_anchors: Optional[np.ndarray] = None,
             ch = []
         ch.append(c2)
     det = layers[-1]
-    return YoloModel(spec, layers, sorted(set(save)), tuple(strides),
-                     det.anchors)
+    return YoloModel(spec, layers, sorted(set(save)),
+                     tuple(strides or ()), getattr(det, "anchors", None))
 
 
 def yolov5_spec(nc: int = 80, depth: float = 0.33, width: float = 0.5,
@@ -519,13 +838,146 @@ def char_ocr_spec() -> YoloSpec:
     return YoloSpec(36, 0.33, 0.5, 2, backbone, head)
 
 
-def load_plate_detector(path: str, device: DeviceLike = "cuda") -> YoloModel:
-    """The plate detector (yolov5s, nc=11, strides 8/16/32) from a flat
-    npz checkpoint such as ``checkpoints/plate_det640.npz``."""
+def yolov5_p6_spec(nc: int = 80, depth: float = 0.33, width: float = 0.5,
+                   anchors=None) -> YoloSpec:
+    """4-scale P6/64 variant (reference models/hub/yolov5s6.yaml): a 768-ch
+    P5 stage before the 1024-ch P6 + SPPF, three up and three down PAN
+    steps, Detect on P3-P6 (strides 8/16/32/64; a 64-multiple input)."""
+    if anchors is None:
+        anchors = [[19, 27, 44, 40, 38, 94],
+                   [96, 68, 86, 152, 180, 137],
+                   [140, 301, 303, 264, 238, 542],
+                   [436, 615, 739, 380, 925, 792]]
+    backbone = (
+        (-1, 1, "Conv", [64, 6, 2, 2]),
+        (-1, 1, "Conv", [128, 3, 2]),
+        (-1, 3, "C3", [128]),
+        (-1, 1, "Conv", [256, 3, 2]),
+        (-1, 6, "C3", [256]),
+        (-1, 1, "Conv", [512, 3, 2]),
+        (-1, 9, "C3", [512]),
+        (-1, 1, "Conv", [768, 3, 2]),
+        (-1, 3, "C3", [768]),
+        (-1, 1, "Conv", [1024, 3, 2]),
+        (-1, 3, "C3", [1024]),
+        (-1, 1, "SPPF", [1024, 5]),
+    )
+    head = (
+        (-1, 1, "Conv", [768, 1, 1]),
+        (-1, 1, "nn.Upsample", [None, 2, "nearest"]),
+        ([-1, 8], 1, "Concat", [1]),
+        (-1, 3, "C3", [768, False]),
+        (-1, 1, "Conv", [512, 1, 1]),
+        (-1, 1, "nn.Upsample", [None, 2, "nearest"]),
+        ([-1, 6], 1, "Concat", [1]),
+        (-1, 3, "C3", [512, False]),
+        (-1, 1, "Conv", [256, 1, 1]),
+        (-1, 1, "nn.Upsample", [None, 2, "nearest"]),
+        ([-1, 4], 1, "Concat", [1]),
+        (-1, 3, "C3", [256, False]),
+        (-1, 1, "Conv", [256, 3, 2]),
+        ([-1, 20], 1, "Concat", [1]),
+        (-1, 3, "C3", [512, False]),
+        (-1, 1, "Conv", [512, 3, 2]),
+        ([-1, 16], 1, "Concat", [1]),
+        (-1, 3, "C3", [768, False]),
+        (-1, 1, "Conv", [768, 3, 2]),
+        ([-1, 12], 1, "Concat", [1]),
+        (-1, 3, "C3", [1024, False]),
+        ([23, 26, 29, 32], 1, "Detect", ["nc", "anchors"]),
+    )
+    return YoloSpec(nc, depth, width, anchors, backbone, head)
+
+
+# (depth, width) multiples of the named sizes.
+_SIZE_PRESETS = {
+    "n": (0.33, 0.25), "s": (0.33, 0.50), "m": (0.67, 0.75),
+    "l": (1.00, 1.00), "x": (1.33, 1.25),
+}
+
+
+def yolov5(size: str = "s", nc: int = 80, strides=None) -> YoloModel:
+    """The named zoo, built (call :meth:`YoloModel.load_state` before use):
+    yolov5{n,s,m,l,x} and the P6 variants yolov5{n,s,m,l,x}6."""
+    p6 = size.endswith("6")
+    base = size[:-1] if p6 else size
+    if base not in _SIZE_PRESETS:
+        raise ValueError(
+            f"unknown yolov5 size {size!r}: expected one of "
+            f"{sorted(_SIZE_PRESETS)} or their P6 variants ('n6'..'x6')")
+    depth, width = _SIZE_PRESETS[base]
+    if strides is None:
+        strides = (8, 16, 32, 64) if p6 else (8, 16, 32)
+    spec_fn = yolov5_p6_spec if p6 else yolov5_spec
+    return build_yolo(spec_fn(nc=nc, depth=depth, width=width),
+                      strides=strides)
+
+
+def apply_augmented(model: YoloModel, x: Tensor) -> Tensor:
+    """Test-time augmentation (``lpr_tpu/models/yolo.py:1329-1366``): the
+    decoded predictions at scales 1, 0.83 (flipped left-right) and 0.67,
+    rescaled to the input's pixels, with the augmented tails clipped.  The
+    downscales are ``jax.image.resize``'s antialiased bilinear
+    (:func:`lpr_tpu_torch.ops.image.resize_bilinear`).  x: (B, H, W, 3)."""
+    from lpr_tpu_torch.ops.image import resize_bilinear
+
+    h, w = int(x.shape[1]), int(x.shape[2])
+    gs = int(max(model.strides))
+    preds = []
+    for si, flip in zip((1.0, 0.83, 0.67), (False, True, False)):
+        xi = torch.flip(x, (2,)) if flip else x
+        if si != 1.0:
+            nh = math.ceil(h * si / gs) * gs
+            nw = math.ceil(w * si / gs) * gs
+            xi = resize_bilinear(xi, (nh, nw))
+        pred = model(xi, decode=True)[0].float()
+        scale_back = (xi.shape[2] / w) if si != 1.0 else 1.0
+        xy = pred[..., 0:2] / scale_back
+        wh = pred[..., 2:4] / scale_back
+        if flip:
+            xy = torch.stack([w - xy[..., 0], xy[..., 1]], -1)
+        preds.append(torch.cat([xy, wh, pred[..., 4:]], -1))
+    nl = len(model.strides)
+    g = sum(4 ** i for i in range(nl))
+    i0 = preds[0].shape[1] // g     # one coarsest-level cell group
+    preds[0] = preds[0][:, :preds[0].shape[1] - i0]
+    ilast = preds[-1].shape[1] // g * (4 ** (nl - 1))
+    preds[-1] = preds[-1][:, ilast:]
+    return torch.cat(preds, 1)
+
+
+class YoloEnsemble(torch.nn.Module):
+    """NMS-ensemble of YOLO models (``lpr_tpu/models/yolo.py:1369-1393``):
+    their decoded predictions concatenated along the box dimension, for one
+    NMS pass.  Inference only: ``forward(x)`` returns ``(pred, None)``."""
+
+    def __init__(self, models: Sequence[YoloModel]):
+        super().__init__()
+        if len(models) < 2:
+            raise ValueError("an ensemble needs at least two models")
+        if len({m.nc for m in models}) != 1:
+            raise ValueError("ensemble nc mismatch")
+        self.models = torch.nn.ModuleList(models)
+        self.nc = models[0].nc
+        # letterbox alignment uses the coarsest stride
+        self.stride = max(max(m.strides) for m in models)
+        self.strides = max((m.strides for m in models), key=max)
+
+    def forward(self, x: Tensor, decode: bool = True):
+        if not decode:
+            raise ValueError("an ensemble returns decoded predictions only")
+        return torch.cat([m(x, decode=True)[0] for m in self.models], 1), None
+
+
+def load_plate_detector(path: str, device: DeviceLike = "cuda",
+                        size: str = "s", nc: int = 11) -> YoloModel:
+    """A plate detector (``yolov5(size)``, nc=11, strides 8/16/32) from a
+    flat npz checkpoint: ``checkpoints/plate_det640.npz`` and
+    ``demo_plate_s.npz`` (size "s", the default) or ``demo_plate.npz``
+    ("n")."""
     dev = resolve_device(device)
     state, _ = load_state(path)
-    model = build_yolo(yolov5_spec(nc=11), strides=(8, 16, 32))
-    return model.load_state(state).to(dev).eval()
+    return yolov5(size, nc=nc).load_state(state).to(dev).eval()
 
 
 def load_char_ocr_npz(path: str, device: DeviceLike = "cuda"):

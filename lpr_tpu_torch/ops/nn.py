@@ -1,6 +1,10 @@
 """Core NHWC neural-net ops (counterpart of ``lpr_tpu/ops/nn.py``).
 
-Activations are NHWC at every public function, as in the JAX package.  A
+Activations are NHWC at every public function, as in the JAX package.
+The int8 path (:func:`quantize_conv_weight`, :func:`conv2d_int8`) runs on
+a card through the hand-written kernels of
+``lpr_tpu_torch/kernels/conv_int8.py`` and on the CPU through their plain
+versions.  A
 contiguous NHWC tensor permuted to NCHW is PyTorch's ``channels_last``
 layout, so each convolution here hands cuDNN a channels-last view and
 permutes its output back — no copies.  Conv weights are OIHW (PyTorch's own
@@ -53,6 +57,47 @@ def conv2d(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
     return y.permute(0, 2, 3, 1)
 
 
+def quantize_conv_weight(w) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-output-channel int8 quantization of an HWIO conv
+    weight (``lpr_tpu.ops.nn.quantize_conv_weight``): (int8 weight,
+    float32 per-Cout scale).  numpy in float32, the JAX function's
+    operations in its order (amax / 127, floor 1e-12, round half to even,
+    clip to +-127), so the bytes equal JAX's."""
+    w = np.asarray(w, np.float32)
+    amax = np.max(np.abs(w), axis=(0, 1, 2))
+    scale = np.maximum(amax / np.float32(127.0), np.float32(1e-12))
+    wq = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return wq, scale.astype(np.float32)
+
+
+def conv2d_int8(x: Tensor, w_q: Tensor, w_scale: Tensor,
+                b: Optional[Tensor] = None, *,
+                stride: Union[int, Tuple[int, int]] = 1,
+                padding: PadLike = "same", groups: int = 1,
+                packed: Optional[Tensor] = None) -> Tensor:
+    """Dynamically quantized int8 convolution (``lpr_tpu.ops.nn
+    .conv2d_int8``): the activations quantized per tensor on the fly
+    (max|x| / 127 over the whole batch), int8 x int8 -> int32, then
+    ``float(acc) * (sx * w_scale) + b`` in float32, rounded to ``x``'s
+    dtype.  ``w_q`` is an HWIO int8 tensor, ``w_scale`` and ``b`` float32
+    (Cout,).
+
+    On a CUDA tensor the quantize is kernel I1 and the convolution kernel
+    I2 (``kernels/conv_int8.py``; ``packed``: the weight in I2's layout,
+    :func:`~lpr_tpu_torch.kernels.conv_int8.int8_pack`, packed here when
+    None); on a CPU tensor their plain versions."""
+    from lpr_tpu_torch.kernels import conv_int8 as ki
+
+    kh, kw = int(w_q.shape[0]), int(w_q.shape[1])
+    pad = _resolve_padding(padding, kh, kw)
+    st = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    xq, sx = ki.quantize_act(x)
+    if packed is None and x.device.type == "cuda":
+        packed = ki.int8_pack(w_q)
+    return ki.conv_int8(xq, sx, w_q, w_scale, b, stride=st, padding=pad,
+                        groups=groups, out_dtype=x.dtype, packed=packed)
+
+
 def depthwise_conv2d(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
                      stride=1, padding: PadLike = "same",
                      dilation=1) -> Tensor:
@@ -102,6 +147,15 @@ def silu(x: Tensor) -> Tensor:
                                                      device=y.device), y)
 
 
+def relu(x: Tensor) -> Tensor:
+    return torch.clamp_min(x, 0)
+
+
+def leaky_relu(x: Tensor, slope: float = 0.2) -> Tensor:
+    """``where(x >= 0, x, slope * x)``, as the JAX package's."""
+    return torch.where(x >= 0, x, slope * x)
+
+
 def max_pool2d(x: Tensor, k: int, stride: int = 1,
                padding: Optional[int] = None) -> Tensor:
     """Max pool, NHWC, torch semantics (symmetric pad, -inf fill)."""
@@ -109,6 +163,35 @@ def max_pool2d(x: Tensor, k: int, stride: int = 1,
         padding = k // 2
     y = F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool2d(x: Tensor, k: int, stride: int = 1, padding: int = 0
+               ) -> Tensor:
+    """Average pool, NHWC: the window sum over zero padding divided by
+    k * k (padding counted, as the JAX ``reduce_window`` sum)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), k, stride, padding,
+                     count_include_pad=True)
+    return y.permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x: Tensor) -> Tensor:
+    """(N, H, W, C) -> (N, C): AdaptiveAvgPool2d(1) + Flatten."""
+    return x.mean(dim=(1, 2))
+
+
+def instance_norm(x: Tensor, eps: float = 1e-5) -> Tensor:
+    """InstanceNorm2d with torch's defaults (affine=False) over H, W of an
+    NHWC batch: ``(x - mean) * rsqrt(var + eps)``, biased variance, as the
+    JAX package's."""
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    var = x.var(dim=(1, 2), unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+def reflect_pad2d(x: Tensor, pad: int) -> Tensor:
+    """Reflection padding of H and W (numpy's ``mode="reflect"``)."""
+    return F.pad(x.permute(0, 3, 1, 2), (pad,) * 4,
+                 mode="reflect").permute(0, 2, 3, 1)
 
 
 def pixel_unshuffle(x: Tensor, r: int) -> Tensor:

@@ -3,7 +3,10 @@
 
 One step over a batch of frames, all on the device: letterbox, the plate
 detector (layers 0-2 through the K1 kernel, and layers 3-4 through K3 when
-``fused_mid`` is set), lazy-decode NMS, the top plates by area, per-plate
+``fused_mid`` is set; with ``int8_detector`` its other convolutions in
+int8 through kernels I1 and I2), lazy-decode NMS (or, with
+``lazy_decode=False``, the whole grid decoded and ``nms_batched``), the top
+plates by area, per-plate
 skew estimate and rotated crops (interpolation matrices), the 2-row ->
 1-row reshape, LPSR (for the production configuration the K2 kernel on a
 card and its plain version on the CPU; any other configuration runs
@@ -39,7 +42,7 @@ from lpr_tpu_torch.models.lpsr import LPSR
 from lpr_tpu_torch.models.yolo import YoloModel
 from lpr_tpu_torch.ops import image as im
 from lpr_tpu_torch.ops.boxes import clip_boxes
-from lpr_tpu_torch.ops.nms import nms_from_raw
+from lpr_tpu_torch.ops.nms import nms_batched, nms_from_raw
 from lpr_tpu_torch.ops.resample import crop_rotated_fast, plate_tile
 from lpr_tpu_torch.pipeline.chars import detections_to_string
 
@@ -66,13 +69,16 @@ def _call(name: str, fn, *args):
 
 def _kernel_counters():
     """(function, attribute) of every launch count the device step can
-    move: K1's bf16 and uint8 instances, K3, K2."""
+    move: K1's bf16 and uint8 instances, K3, K2, and with int8_detector I1
+    and I2."""
+    from lpr_tpu_torch.kernels.conv_int8 import conv_int8, quantize_act
     from lpr_tpu_torch.kernels.lpsr import lpsr_fused
     from lpr_tpu_torch.kernels.yolo_front import yolo_front
     from lpr_tpu_torch.kernels.yolo_mid import yolo_mid
 
     return ((yolo_front, "launches"), (yolo_front, "launches_u8"),
-            (yolo_mid, "launches"), (lpsr_fused, "launches"))
+            (yolo_mid, "launches"), (lpsr_fused, "launches"),
+            (quantize_act, "launches"), (conv_int8, "launches"))
 
 
 def _counts() -> Tuple[int, ...]:
@@ -198,6 +204,19 @@ class PipelineConfig:
     # planes, is not carried over: the port's is K1's own NHWC input).
     # Crops still come from the raw frames.  Needs fused_front.
     packed_input: bool = False
+    # int8-quantize the plate detector (models/yolo.py quantize_yolo:
+    # per-channel int8 weights, BN folded, activations quantized per tensor
+    # on the fly; the Detect head stays float).  On a card the quantized
+    # convolutions run kernels I1 and I2 (kernels/conv_int8.py).  The
+    # detector is quantized after the K1 (and K3) packs are built from its
+    # float weights, so layers 0-2 (and 3-4) stay float in those kernels,
+    # as on the JAX package's TPU path.  Off by default, as there.
+    int8_detector: bool = False
+    # Lazy-decode NMS (ops/nms.py nms_from_raw): candidates are selected on
+    # the raw Detect logits and only they are decoded.  False decodes the
+    # whole grid (Detect(decode=True)) and runs nms_batched on it, the
+    # reference-shaped path.
+    lazy_decode: bool = True
 
 
 def _aspect_canvas(img: Tensor, canvas_hw: Tuple[int, int]) -> Tensor:
@@ -312,6 +331,12 @@ class PlateRecognizer:
         which rebuilds the frozen program)."""
         cfg = self.cfg
         if plate_model is not None:
+            if cfg.int8_detector:
+                # from the float32 weights as loaded, before the cast; the
+                # K1/K3 packs below read the float weights the layers keep
+                from lpr_tpu_torch.models.yolo import quantize_yolo
+
+                quantize_yolo(plate_model)
             self.plate_model = plate_model.to(self.device, cfg.dtype).eval()
         if char_model is not None:
             self.char_model = char_model.to(self.device, cfg.dtype).eval()
@@ -421,18 +446,24 @@ class PlateRecognizer:
         lb, gain, pad = im.letterbox(x, self.cfg.det_hw, fill=0.0)
         return x, lb.contiguous(), gain, pad
 
-    def _detect(self, lb: Tensor) -> List[Tensor]:
+    def _detect(self, lb: Tensor):
+        """The raw Detect logits, or with ``lazy_decode=False`` (decoded
+        predictions, raws)."""
+        decode = not self.cfg.lazy_decode
         if lb.dtype == torch.uint8:
             return self.plate_model(None, front=self._front, mid=self._mid,
-                                    packed=lb)
-        return self.plate_model(lb, front=self._front, mid=self._mid)
+                                    packed=lb, decode=decode)
+        return self.plate_model(lb, front=self._front, mid=self._mid,
+                                decode=decode)
 
-    def _plate_nms(self, raws: List[Tensor]) -> Dict[str, Tensor]:
-        return nms_from_raw(raws, self.plate_model.strides,
+    def _plate_nms(self, out) -> Dict[str, Tensor]:
+        kw = dict(max_det=16, pre_topk=64, multi_label=True, agnostic=True,
+                  class_ids=self.plate_class_ids)
+        if not self.cfg.lazy_decode:
+            return nms_batched(out[0], self.cfg.det_conf, self.cfg.iou, **kw)
+        return nms_from_raw(out, self.plate_model.strides,
                             self.plate_model.anchors, self.cfg.det_conf,
-                            self.cfg.iou, max_det=16, pre_topk=64,
-                            multi_label=True, agnostic=True,
-                            class_ids=self.plate_class_ids)
+                            self.cfg.iou, **kw)
 
     def _top_plates(self, det: Dict[str, Tensor], gain: Tensor, pad: Tensor,
                     fh: int, fw: int):
@@ -475,12 +506,20 @@ class PlateRecognizer:
             ocr_in = ocr_sr
         return ocr_in.to(self.cfg.dtype).contiguous()
 
-    def _char_nms(self, cout: List[Tensor]) -> Dict[str, Tensor]:
+    def _char_ocr(self, ocr_in: Tensor):
+        """The char model's raw logits, or with ``lazy_decode=False``
+        (decoded predictions, raws)."""
+        return self.char_model(ocr_in, decode=not self.cfg.lazy_decode)
+
+    def _char_nms(self, cout) -> Dict[str, Tensor]:
         cfg = self.cfg
+        kw = dict(max_det=cfg.max_chars, pre_topk=cfg.char_pre_topk,
+                  multi_label=True, agnostic=True)
+        if not cfg.lazy_decode:
+            return nms_batched(cout[0], cfg.ocr_conf, cfg.iou, **kw)
         return nms_from_raw(cout, self.char_model.strides,
                             self.char_model.anchors, cfg.ocr_conf, cfg.iou,
-                            max_det=cfg.max_chars, pre_topk=cfg.char_pre_topk,
-                            multi_label=True, agnostic=True)
+                            **kw)
 
     @torch.inference_mode()
     def step_raw(self, frames, packed=None, run=None) -> Dict[str, Any]:
@@ -533,7 +572,7 @@ class PlateRecognizer:
         sr_out = run("LPSR", self._enhance, long_img)
         ocr_in = run("OCR canvases", self._ocr_input, sr_out, ocr_orig,
                      is_long)
-        cout = run("char OCR", self.char_model, ocr_in)
+        cout = run("char OCR", self._char_ocr, ocr_in)
         cdet = run("char NMS", self._char_nms, cout)
         sh, sw = cfg.sr_hw
         n_orig = B * P if cfg.ocr_on_original else 0

@@ -44,11 +44,13 @@ def card(device: torch.device) -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def bound_ms(work: Tuple[int, int]) -> Tuple[float, str]:
-    """(ms, "operations" or "bytes") of (flops, bytes) at the bf16 peak and
-    the memory rate: the larger of the two times."""
+def bound_ms(work: Tuple[int, int],
+             peak: float = PEAK_BF16_FLOPS) -> Tuple[float, str]:
+    """(ms, "operations" or "bytes") of (operations, bytes) at ``peak``
+    (the bf16 peak by default; int8 operations at 1,979 TOPS) and the
+    memory rate: the larger of the two times."""
     flops, nbytes = work
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 

@@ -2,7 +2,7 @@
 ``tools/profile_stages.py``).
 
     python -m lpr_tpu_torch.tools.profile_stages [--batch 8] [--calls 5]
-        [--rounds 3] [--device cuda]
+        [--rounds 3] [--packed] [--int8] [--eager-decode] [--device cuda]
 
 Builds the production recognizer (720p frames made with numpy by
 ``tools/synth.py``, detector at 736x1280, bf16, the repo's checkpoints; K1
@@ -29,7 +29,9 @@ and :func:`frozen_rows` each stage again as the frozen step runs it: a
 device stage captured alone as a CUDA graph and replayed, the upload as
 the graph's pinned staging copy.  ``--packed`` runs it on host-letterboxed
 frames (``packed_input``), whose "host letterbox" stage does its work on
-the host.
+the host; ``--int8`` with the detector in int8 (``int8_detector``: I1 and
+I2 after K1), ``--eager-decode`` with the whole grid decoded before NMS
+(``lazy_decode=False``).
 Run from the repo root.
 """
 
@@ -247,6 +249,10 @@ def main(argv=None) -> int:
                     default="bfloat16")
     ap.add_argument("--packed", action="store_true",
                     help="packed_input: host-letterboxed uint8 frames")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8_detector: I1 + I2 after K1")
+    ap.add_argument("--eager-decode", action="store_true",
+                    help="lazy_decode=False: the whole grid decoded")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -255,7 +261,9 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     rec = build_recognizer(dev, getattr(torch, args.dtype),
-                           tuple(args.det_hw), packed_input=args.packed)
+                           tuple(args.det_hw), packed_input=args.packed,
+                           int8_detector=args.int8,
+                           lazy_decode=not args.eager_decode)
     frames = synth_frames(args.batch, tuple(args.frame_hw), seed=0)
     step, rows, alt = split_rows(rec, frames, args.calls, args.rounds)
     alt.insert(0, eager_step_row(rec, frames, args.calls, args.rounds))
@@ -265,7 +273,9 @@ def main(argv=None) -> int:
     print(f"step by stage: batch {args.batch}, frames "
           f"{args.frame_hw[0]}x{args.frame_hw[1]}, det "
           f"{args.det_hw[0]}x{args.det_hw[1]}, {args.dtype}"
-          f"{', packed input' if args.packed else ''}; step "
+          f"{', packed input' if args.packed else ''}"
+          f"{', int8 detector' if args.int8 else ''}"
+          f"{', eager decode' if args.eager_decode else ''}; step "
           f"{'frozen' if dev.type == 'cuda' else 'eager'}; "
           f"launches = kernels executed, host calls = launches issued; "
           f"per call, "

@@ -1,14 +1,17 @@
 """Where a recognizer step's time goes on the card.
 
     python -m lpr_tpu_torch.tools.profile_step [--batch 8] [--steps 5]
-        [--frozen | --eager] [--packed] [--device cuda]
+        [--frozen | --eager] [--packed] [--int8] [--eager-decode]
+        [--device cuda]
 
 Builds the production recognizer (720p frames, detector at 736x1280,
 bf16, the repo's checkpoints; K1 on) with the step frozen into a CUDA
 graph (``--frozen``, the default, as ``PipelineConfig.freeze_params``) or
 launched op by op (``--eager``), on raw frames or with ``--packed`` on
-host-letterboxed ones (``packed_input``), then prints, with the card's
-name and power limit:
+host-letterboxed ones (``packed_input``), with ``--int8`` its detector in
+int8 (``int8_detector``), with ``--eager-decode`` the whole grid decoded
+(``lazy_decode=False``), then prints, with the card's name and power
+limit:
 
 - ms/step from the host clock around ``torch.cuda.synchronize()``, best and
   all of three rounds, profiler off;
@@ -47,6 +50,10 @@ def main(argv=None) -> int:
                       help="the step launched op by op")
     ap.add_argument("--packed", action="store_true",
                     help="host-letterboxed uint8 detector input")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8_detector: I1 + I2 after K1")
+    ap.add_argument("--eager-decode", action="store_true",
+                    help="lazy_decode=False: the whole grid decoded")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -65,7 +72,9 @@ def main(argv=None) -> int:
         load_plate_detector("checkpoints/plate_det640.npz", dev), char,
         load_lpsr("checkpoints/lpsr_synth_glare/best_model.npz", device=dev),
         PipelineConfig(det_hw=DET_HW, dtype=torch.bfloat16,
-                       freeze_params=args.frozen, packed_input=args.packed),
+                       freeze_params=args.frozen, packed_input=args.packed,
+                       int8_detector=args.int8,
+                       lazy_decode=not args.eager_decode),
         char_names=names, device=dev)
     frames = synth_frames(args.batch, FRAME_HW, seed=0)
     for _ in range(3):
@@ -81,7 +90,10 @@ def main(argv=None) -> int:
     frozen = args.frozen and dev.type == "cuda"
     print(f"card: {card}")
     print(f"step ({'frozen: one CUDA graph' if frozen else 'eager'}"
-          f"{', packed input' if args.packed else ''}): batch {args.batch}, "
+          f"{', packed input' if args.packed else ''}"
+          f"{', int8 detector' if args.int8 else ''}"
+          f"{', eager decode' if args.eager_decode else ''}): batch "
+          f"{args.batch}, "
           f"{FRAME_HW[0]}p, det {DET_HW[0]}x{DET_HW[1]}, bf16: best "
           f"{best:.3f} ms/step ({1e3 * args.batch / best:.3f} frames/s); "
           f"rounds {step_ms}")

@@ -130,8 +130,11 @@ def _equal_on_card(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg_kw", [{}, {"fused_mid": True},
-                                    {"packed_input": True}],
-                         ids=["default", "fused_mid", "packed"])
+                                    {"packed_input": True},
+                                    {"int8_detector": True},
+                                    {"lazy_decode": False}],
+                         ids=["default", "fused_mid", "packed", "int8",
+                              "eager_decode"])
 def test_graph_step_equals_eager_step_on_card(cfg_kw):
     """The production configuration at batch 8 on 720p frames: the graph's
     replays give the eager step's outputs bit for bit, on two batches of

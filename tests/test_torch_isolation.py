@@ -87,3 +87,19 @@ def test_the_walk_covers_the_serving_modules():
     assert {"lpr_tpu_torch.native", "lpr_tpu_torch.serve.http",
             "lpr_tpu_torch.serve.server",
             "lpr_tpu_torch.tools.bench_serving"} <= names
+
+
+def test_the_walk_covers_the_int8_kernels_and_the_model_zoo():
+    """The import probe above also walks the int8 kernels' wrapper, the
+    detector wrapper, the CycleGAN, the LPSR variants and the torch -> HWIO
+    helpers, so none of them may import jax, lpr_tpu or PIL."""
+    import pkgutil
+
+    import lpr_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(lpr_tpu_torch.__path__,
+                                                   "lpr_tpu_torch.")}
+    assert {"lpr_tpu_torch.kernels.conv_int8",
+            "lpr_tpu_torch.models.detector", "lpr_tpu_torch.models.cyclegan",
+            "lpr_tpu_torch.models.lpsr_variants",
+            "lpr_tpu_torch.weights.convert"} <= names
