@@ -91,11 +91,29 @@ Phases, each printing one line with its elapsed seconds:
    submit_ref) of the default recognizer and of the packed_input one, and
    HttpFrontend on 127.0.0.1 with every route (health, infer, infer_batch,
    stats).
-9. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
+9. apps    — the apps a user runs, each with the launch counts set to 0
+   before it and read after it: cli/evaluate (its main, --per-image
+   --json-out, batch 64, float32) over tests/fixtures/real_plates,
+   real_plates2 and real_plates_cn, where K2 must launch per folder and the
+   raw strings must equal the CPU evaluator's (at most one SR string a
+   folder may differ), with acc/CER raw and SR and the evaluator's
+   images/s at batch 64; K2's float32 instance at N = 64 and N = 1 against
+   its plain version (float32 TOL_*), timed (plain, kernel, kernel, plain)
+   beside the float32 LPSR.forward through cuDNN with TF32 off (its
+   library_ms; the entry lpsr_f32, launches from the evaluator); cli/sr on
+   tests/fixtures/real_lr_strips (K2; its PNGs read back, (32, 192, 3) and
+   within 1 LSB of the CPU run's); cli/run on the demo frame (12 copies,
+   batch 4, --panel, the default 1280x1280 bf16 detector; K1 and K2; the
+   printed plates equal to recognize(); PNGs written; its frames/s);
+   cli/find_improvement on real_plates (panels written, K2 launches);
+   cli/serve as a process on a free port: one .npy frame POSTed to
+   /v2/models/pipeline/infer answers as recognize() does, then SIGINT must
+   end it with exit code 0.
+10. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
    requests, max_batch 8), with frames, with the pool, over HTTP and, where
    host_decode built, with files: its JSON lines (client frames/s, latency
    p50/p99, mean batch, the card).
-10. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
+11. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
    with BENCH_PACKED=1 and =0, and BENCH_PACKED=1 with BENCH_INT8=1 (which
    must launch I1 and I2): its JSON lines (frames/s, flops_per_frame,
    mfu_pct against the bf16 peak, the card).
@@ -106,7 +124,8 @@ graph holds.  The second-to-last line is one JSON object {"kernels":
 [...]} (launch counts of K1's bf16 instance and K2 from the serve phase's
 16 requests, the main path a user drives, of K1's uint8 instance from the
 packed_input slice, of K3 from the fused_mid slice, of I1 and I2 from the
-int8_detector slice, of each K4 variant from the probe phase); the last
+int8_detector slice, of each K4 variant from the probe phase, of K2's
+float32 instance, lpsr_f32, from the evaluator in phase apps); the last
 line is {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero before that line.  A watchdog turns a hang into
 a failing exit with a traceback.
@@ -156,6 +175,323 @@ K3_RANDOM_SHAPES = [(3, 20, 36, 64), (1, 16, 32, 64)]
 # K2's further shapes (N, H, W): as tests/test_torch_lpsr_kernel.py's.
 K2_SHAPES = [(1, 32, 192), (7, 32, 192), (2, 16, 96), (2, 48, 200),
              (3, 8, 64), (1, 8, 400)]
+
+# The apps phase's inputs: the repo's plate crops (ground truth in the file
+# names), its low-resolution strips and its demo frame.
+EVAL_FOLDERS = ["tests/fixtures/real_plates", "tests/fixtures/real_plates2",
+                "tests/fixtures/real_plates_cn"]
+EVAL_BATCH = 64
+LR_STRIPS = "tests/fixtures/real_lr_strips"
+DEMO_FRAMES = "tests/fixtures/real_frames"
+# cli/run's frames/s: the demo frame this many times, in batches of 4.
+RUN_FRAMES = 12
+# The card's SR strings may differ from the CPU's (float32 sums in another
+# order move a character's score across the threshold) in this many images
+# of a folder; the raw strings may not differ at all.
+SR_DIFF_MAX = 1
+SERVE_TIMEOUT_S = 240
+
+
+def _wall(fn) -> float:
+    """Seconds of one call of fn on the host clock."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def apps_phase(card, counts_to_zero, counts, timed, iters):
+    """Phase apps: the evaluator, K2's float32 instance, cli/sr, cli/run,
+    cli/find_improvement and cli/serve on the card; returns (the
+    ``lpsr_f32`` kernels entry, a note for the phase line)."""
+    import contextlib
+    import queue
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from lpr_tpu_torch import imageio
+    from lpr_tpu_torch.cli import evaluate as cli_evaluate
+    from lpr_tpu_torch.cli import find_improvement as cli_fi
+    from lpr_tpu_torch.cli import run as cli_run
+    from lpr_tpu_torch.cli import serve as cli_serve
+    from lpr_tpu_torch.cli import sr as cli_sr
+    from lpr_tpu_torch.kernels import lpsr as kl
+    from lpr_tpu_torch.kernels.conv_int8 import PEAK_FP32_FLOPS
+    from lpr_tpu_torch.models.lpsr import load_lpsr
+    from lpr_tpu_torch.tools import _timing, bench_sr_convs
+
+    weights = ["--sr-weights", CKPT_LPSR, "--ocr-weights", CKPT_CHAR]
+    note = {}
+    tmp = tempfile.mkdtemp(prefix="lpr_apps_")
+    try:
+        # 1. the evaluator (cli/evaluate) on the card against the CPU
+        cpu_ev = cli_evaluate.build_evaluator(CKPT_CHAR, CKPT_LPSR, "cpu")
+        eval_launches = 0
+        for folder in EVAL_FOLDERS:
+            js = os.path.join(tmp, "eval.json")
+            counts_to_zero()
+            cli_evaluate.main(["--eval-folder", folder, *weights, "--batch",
+                               str(EVAL_BATCH), "--per-image", "--json-out",
+                               js])
+            torch.cuda.synchronize()
+            c = counts()
+            if c["lpsr"] < 1:
+                raise AssertionError(f"evaluate {folder} did not launch K2: "
+                                     f"{c}")
+            eval_launches += c["lpsr"]
+            with open(js) as f:
+                got = json.load(f)
+            ref = cpu_ev.evaluate_folder(folder, batch_size=16)
+            raw_diff = [(g["gt"], g["raw"], r["raw"]) for g, r in
+                        zip(got["per_image"], ref.per_image)
+                        if g["raw"] != r["raw"]]
+            sr_diff = [(g["gt"], g["sr"], r["sr"]) for g, r in
+                       zip(got["per_image"], ref.per_image)
+                       if g["sr"] != r["sr"]]
+            print(f"evaluate {folder} on {card}: n {got['n']}, acc raw "
+                  f"{got['acc_raw']} sr {got['acc_sr']}, CER raw "
+                  f"{got['cer_raw']} sr {got['cer_sr']}; CPU: acc raw "
+                  f"{ref.acc_raw} sr {ref.acc_sr}, CER raw {ref.cer_raw} sr "
+                  f"{ref.cer_sr}; K2 launches {c['lpsr']}; raw strings "
+                  f"differing from the CPU's (gt, card, cpu) {raw_diff}; "
+                  f"SR strings differing {sr_diff} (at most {SR_DIFF_MAX})",
+                  flush=True)
+            if (got["n"] != ref.n or len(got["per_image"]) != ref.n
+                    or raw_diff or len(sr_diff) > SR_DIFF_MAX):
+                raise AssertionError(f"evaluate {folder}: the card's "
+                                     f"strings disagree with the CPU's")
+        # images/s at batch 64: the plates of the three folders repeated to
+        # one full batch, host preparation and device batch timed apart
+        ev = cli_evaluate.build_evaluator(CKPT_CHAR, CKPT_LPSR, "cuda")
+        plates, gts = [], []
+        for folder in EVAL_FOLDERS:
+            for f in imageio.list_images(folder):
+                plates.append(imageio.read_rgb(os.path.join(folder, f)))
+                gts.append(os.path.splitext(f)[0].upper())
+        plates = (plates * EVAL_BATCH)[:EVAL_BATCH]
+        gts = (gts * EVAL_BATCH)[:EVAL_BATCH]
+        ev.evaluate_arrays(plates, gts, EVAL_BATCH)           # warm-up
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ev.evaluate_arrays(plates, gts, EVAL_BATCH)
+            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        prepped = [ev._prep_host(x) for x in plates]
+        prep_s = time.perf_counter() - t0
+        oc = np.stack([p[0] for p in prepped])
+        si = np.stack([p[1] for p in prepped])
+        dev_oc, dev_si = (torch.from_numpy(oc).cuda(),
+                          torch.from_numpy(si).cuda())
+        batch_ms = _timing.event_ms(lambda: ev._device_batch(dev_oc, dev_si),
+                                    5)
+        ips = EVAL_BATCH / min(walls)
+        print(f"evaluator at batch {EVAL_BATCH} float32 on {card}: "
+              f"{ips:.1f} images/s end to end (best of walls {walls} s), "
+              f"host preparation {prep_s * 1e3:.1f} ms a batch, device "
+              f"batch {batch_ms:.3f} ms (SR, canvases, char OCR on "
+              f"{2 * EVAL_BATCH} images, NMS)", flush=True)
+        note["evaluate"] = f"{ips:.1f} images/s"
+
+        # 2. K2's float32 instance at the evaluator's shapes
+        model32 = load_lpsr(CKPT_LPSR)
+        packed32 = kl.lpsr_pack(model32)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        k2 = {}
+        for n in (EVAL_BATCH, 1):
+            x = torch.rand((n, *LPSR_HW, 3), generator=gen, device="cuda")
+            got = kl.lpsr_fused(x, packed32)
+            ref = kl.lpsr_plain(x, packed32)
+            torch.cuda.synchronize()
+            max_err, mean_err = kl.lpsr_errors(got, ref)
+            tol_max, tol_mean = (kl.TOL_MAX[torch.float32],
+                                 kl.TOL_MEAN[torch.float32])
+            print(f"K2 lpsr_fused vs lpsr_plain {(n, *LPSR_HW, 3)} float32: "
+                  f"max_abs_err {max_err} (< {tol_max}), mean {mean_err} "
+                  f"(< {tol_mean}), finite "
+                  f"{bool(torch.isfinite(got).all())}", flush=True)
+            if not (max_err < tol_max and mean_err < tol_mean
+                    and torch.isfinite(got).all()):
+                raise AssertionError(f"K2 float32 disagrees with its plain "
+                                     f"version at N = {n}")
+            k_ms, plain_ms, runs = timed(lambda: kl.lpsr_fused(x, packed32),
+                                         lambda: kl.lpsr_plain(x, packed32),
+                                         iters)
+            with torch.inference_mode():
+                lib_ms = bench_sr_convs.lpsr_forward_ms(model32, x, iters)
+            work = kl.lpsr_work(n, *LPSR_HW, in_bytes=4)
+            bound_ms, bound_by = _timing.bound_ms(work, PEAK_FP32_FLOPS)
+            print(f"K2 float32 timing at ({n}, {LPSR_HW[0]}, {LPSR_HW[1]}, "
+                  f"3) on {card}: kernel {k_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (runs {runs}), library (composed "
+                  f"LPSR.forward float32, cuDNN, TF32 off) {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, float32 CUDA-core "
+                  f"peak {PEAK_FP32_FLOPS:.3g} FLOP/s; {work} FLOP, "
+                  f"B)", flush=True)
+            k2[n] = {"max_abs_err": max_err, "ms": k_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+        entry = {"name": "lpsr_f32", "route": "cuda",
+                 "source": "lpr_tpu_torch/csrc/lpsr.cu",
+                 "replaces": "lpr_tpu/ops/pallas/lpsr_kernel.py:235",
+                 "launches": eval_launches, **k2[EVAL_BATCH]}
+
+        # 3. cli/sr on the low-resolution strips, card against CPU
+        sr_dirs = {}
+        for dev in ("cuda", "cpu"):
+            sr_dirs[dev] = os.path.join(tmp, f"sr_{dev}")
+            counts_to_zero()
+            names = cli_sr.main(["--weights", CKPT_LPSR, "--input-dir",
+                                 LR_STRIPS, "--output-dir", sr_dirs[dev],
+                                 "--device", dev])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                sr_launches = counts()["lpsr"]
+                if sr_launches < 1:
+                    raise AssertionError(f"cli/sr did not launch K2: "
+                                         f"{counts()}")
+        worst = 0
+        for name in names:
+            a, b = (imageio.read_rgb(os.path.join(sr_dirs[d], name))
+                    for d in ("cuda", "cpu"))
+            if a.shape != (*LPSR_HW, 3) or b.shape != a.shape:
+                raise AssertionError(f"cli/sr {name}: shapes {a.shape}, "
+                                     f"{b.shape}")
+            worst = max(worst, int(np.abs(a.astype(int) - b).max()))
+        print(f"cli/sr on {LR_STRIPS}: {len(names)} PNGs of "
+              f"{(*LPSR_HW, 3)}, card vs CPU max {worst} LSB (<= 1), K2 "
+              f"launches {sr_launches}", flush=True)
+        if worst > 1:
+            raise AssertionError("cli/sr: the card's PNGs differ from the "
+                                 "CPU's by more than 1 LSB")
+
+        # 4. cli/run on the demo frame at the default 1280x1280 detector
+        src = os.path.join(tmp, "frames")
+        os.makedirs(src)
+        demo = imageio.list_images(DEMO_FRAMES)[0]
+        for i in range(RUN_FRAMES):
+            shutil.copy(os.path.join(DEMO_FRAMES, demo),
+                        os.path.join(src, f"f{i:03d}.png"))
+        run_argv = ["--source", src, "--d-weights", CKPT_PLATE,
+                    "--r-weights", CKPT_CHAR, "--sr-weights", CKPT_LPSR,
+                    "--out", os.path.join(tmp, "run"), "--panel",
+                    "--batch", "4"]
+        counts_to_zero()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            printed = cli_run.main(run_argv)
+        torch.cuda.synchronize()
+        run_counts = counts()
+        text = out.getvalue()
+        print(text.splitlines()[0] + " ... " + text.splitlines()[-1],
+              flush=True)
+        if run_counts["yolo_front"] < 1 or run_counts["lpsr"] < 1:
+            raise AssertionError(f"cli/run did not launch K1 and K2: "
+                                 f"{run_counts}")
+        written = sorted(os.listdir(os.path.join(tmp, "run")))
+        if sum(f.startswith("frame_") for f in written) != RUN_FRAMES:
+            raise AssertionError(f"cli/run wrote {written}")
+        rec = cli_run.build_recognizer(cli_run.parse_args(run_argv))
+        frame = imageio.read_rgb(os.path.join(DEMO_FRAMES, demo))
+        want = rec.recognize(np.stack([frame] * 4))[0]
+
+        def key(res):
+            return [(p["class_id"], p["text"], p["text_sr"]) for p in res]
+
+        if any(key(p) != key(want) for p in printed):
+            raise AssertionError(f"cli/run printed {key(printed[0])}, "
+                                 f"recognize() gives {key(want)}")
+        fps = float(text.rsplit("last fps ", 1)[1].rstrip(")\n"))
+        # where a batch of the CLI's time goes, each piece alone
+        from lpr_tpu_torch.pipeline.annotate import annotate_frame
+
+        path = os.path.join(DEMO_FRAMES, demo)
+        read_ms = 1e3 * min(_wall(lambda: imageio.read_rgb(path))
+                            for _ in range(3))
+        write_ms = 1e3 * min(_wall(lambda: imageio.write_png(
+            os.path.join(tmp, "w.png"), annotate_frame(frame, want)))
+            for _ in range(3))
+        step_ms = 1e3 * min(_wall(lambda: rec.recognize(
+            np.stack([frame] * 4))) for _ in range(3))
+        print(f"cli/run on {card}: {RUN_FRAMES} frames of "
+              f"{frame.shape}, detector 1280x1280 bf16, batch 4: plates "
+              f"{key(want)} equal to recognize(); {len(written)} PNGs "
+              f"written; {fps} frames/s (the CLI's own, last batch: "
+              f"reading, recognizing, annotating and writing); alone, best "
+              f"of 3: read_rgb {read_ms:.1f} ms a frame, annotate + "
+              f"write_png {write_ms:.1f} ms a frame, recognize() "
+              f"{step_ms:.1f} ms a batch of 4; launches {run_counts}",
+              flush=True)
+        note["run"] = f"{fps} frames/s"
+
+        # 5. cli/find_improvement on the real plates
+        counts_to_zero()
+        found = cli_fi.main(["--eval-folder", EVAL_FOLDERS[0], *weights,
+                             "--out", os.path.join(tmp, "improved")])
+        torch.cuda.synchronize()
+        fi_counts = counts()
+        if fi_counts["lpsr"] < 1:
+            raise AssertionError(f"find_improvement did not launch K2: "
+                                 f"{fi_counts}")
+        print(f"cli/find_improvement on {EVAL_FOLDERS[0]}: {len(found)} "
+              f"panels written ({found}), K2 launches {fi_counts['lpsr']}",
+              flush=True)
+
+        # 6. cli/serve as a process: one frame over HTTP, then SIGINT
+        serve_argv = ["--d-weights", CKPT_PLATE, "--r-weights", CKPT_CHAR,
+                      "--sr-weights", CKPT_LPSR, "--port", "0"]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lpr_tpu_torch.cli.serve", *serve_argv],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lines = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(l) for l in proc.stdout],
+                         daemon=True).start()
+        try:
+            url = None
+            t_end = time.perf_counter() + SERVE_TIMEOUT_S
+            while url is None and time.perf_counter() < t_end:
+                try:
+                    line = lines.get(timeout=5)
+                except queue.Empty:
+                    if proc.poll() is not None:
+                        break
+                    continue
+                print(f"cli/serve: {line.rstrip()}", flush=True)
+                if line.startswith("serving on "):
+                    url = line.split()[2]
+            if url is None:
+                raise AssertionError("cli/serve did not start")
+            buf = io.BytesIO()
+            np.save(buf, frame)
+            req = urllib.request.Request(url + "/v2/models/pipeline/infer",
+                                         data=buf.getvalue())
+            with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+                served = json.loads(r.read())
+            srec = cli_run.build_recognizer(cli_serve.parse_args(serve_argv))
+            want = srec.recognize(np.stack([frame] * 8))[0]
+            if key(served) != key(want):
+                raise AssertionError(f"cli/serve answered {key(served)}, "
+                                     f"recognize() gives {key(want)}")
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+            if rc != 0:
+                raise AssertionError(f"cli/serve exited {rc} on SIGINT")
+            print(f"cli/serve: answer {key(served)} equal to recognize(); "
+                  f"exited 0 on SIGINT", flush=True)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        note["serve"] = "ok"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return entry, note
+
 
 _T0 = time.perf_counter()
 
@@ -1098,7 +1434,15 @@ def main() -> int:
     phase("serve", t, f"; {len(served)} requests, launches {serve_counts}; "
           f"further paths {path_counts}")
 
-    # ---- 9. serving -----------------------------------------------------
+    # ---- 9. apps --------------------------------------------------------
+    t = time.perf_counter()
+    apps_entry, apps_note = apps_phase(card, counts_to_zero, counts, timed,
+                                       iters)
+    kernels.append(apps_entry)
+    phase("apps", t, f"; {apps_note}, K2 float32 launches in the "
+          f"evaluator {apps_entry['launches']}")
+
+    # ---- 10. serving -----------------------------------------------------
     from lpr_tpu_torch.tools import bench_serving
 
     t = time.perf_counter()
@@ -1110,7 +1454,7 @@ def main() -> int:
             raise AssertionError(f"bench_serving {m}")
     phase("serving", t, f"; modes {[m or ['frames'] for m in modes]}")
 
-    # ---- 10. bench -------------------------------------------------------
+    # ---- 11. bench -------------------------------------------------------
     from lpr_tpu_torch import bench
 
     t = time.perf_counter()

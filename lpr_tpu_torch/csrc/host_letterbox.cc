@@ -25,6 +25,10 @@
 //     the reduction factor, coefficients normalised in double and rounded
 //     to 22-bit fixed point, a horizontal then a vertical pass, each
 //     rounded and clipped to 8 bits.  Returns 0, or -1 on a bad size.
+//
+//   lpr_resize_pil_bicubic(src, h, w, dst, oh, ow)
+//     Image.resize(..., BICUBIC), Pillow's default resample: the same two
+//     passes with the cubic convolution filter (a = -0.5, support 2).
 
 #include <cmath>
 #include <cstdint>
@@ -55,19 +59,35 @@ struct Coeffs {
   std::vector<int> kk;      // ksize fixed-point coefficients per sample
 };
 
+struct Filter {
+  double (*fn)(double);
+  double support;
+};
+
 double bilinear_filter(double x) {
   if (x < 0.0) x = -x;
   if (x < 1.0) return 1.0 - x;
   return 0.0;
 }
 
+double bicubic_filter(double x) {
+  constexpr double a = -0.5;
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+  if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+  return 0.0;
+}
+
+constexpr Filter kBilinear{bilinear_filter, 1.0};
+constexpr Filter kBicubic{bicubic_filter, 2.0};
+
 // precompute_coeffs + normalize_coeffs_8bpc for the box (0, in_size).
-Coeffs precompute(int in_size, int out_size) {
+Coeffs precompute(int in_size, int out_size, const Filter& f) {
   Coeffs c;
   double filterscale = static_cast<double>(static_cast<float>(in_size)) / out_size;
   double scale = filterscale;
   if (filterscale < 1.0) filterscale = 1.0;
-  double support = 1.0 * filterscale;
+  double support = f.support * filterscale;
   c.ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
   c.bounds.resize(static_cast<size_t>(out_size) * 2);
   std::vector<double> kk(static_cast<size_t>(out_size) * c.ksize, 0.0);
@@ -82,7 +102,7 @@ Coeffs precompute(int in_size, int out_size) {
     xmax -= xmin;
     double* k = &kk[static_cast<size_t>(xx) * c.ksize];
     for (int x = 0; x < xmax; ++x) {
-      double w = bilinear_filter((x + xmin - center + 0.5) * ss);
+      double w = f.fn((x + xmin - center + 0.5) * ss);
       k[x] = w;
       ww += w;
     }
@@ -103,54 +123,11 @@ inline uint8_t clip8(int in) {
   return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
 }
 
-}  // namespace
-
-extern "C" {
-
-void lpr_letterbox_batch(const uint8_t* const* frames, int n, int h, int w,
-                         uint8_t* out, int oh, int ow, int nh, int nw,
-                         int top, int left, uint8_t fill, int n_threads) {
-  const bool pad_only = nh == h && nw == w;
-  Taps tx;
-  if (!pad_only) tx = host_letterbox::taps(w, nw);
-  const long rows = static_cast<long>(n) * oh;
-  const size_t row_bytes = static_cast<size_t>(ow) * 3;
-  auto run = [&](long r0, long r1) {
-    for (long r = r0; r < r1; ++r) {
-      int b = static_cast<int>(r / oh), y = static_cast<int>(r % oh);
-      uint8_t* drow = out + static_cast<size_t>(r) * row_bytes;
-      if (y < top || y >= top + nh) {
-        memset(drow, fill, row_bytes);
-        continue;
-      }
-      memset(drow, fill, static_cast<size_t>(left) * 3);
-      memset(drow + static_cast<size_t>(left + nw) * 3, fill,
-             static_cast<size_t>(ow - left - nw) * 3);
-      const uint8_t* src = frames[b];
-      uint8_t* dst = drow + static_cast<size_t>(left) * 3;
-      if (pad_only)
-        memcpy(dst, src + static_cast<size_t>(y - top) * w * 3,
-               static_cast<size_t>(w) * 3);
-      else
-        host_letterbox::resize_row(src, w, h, nh, y - top, tx, dst);
-    }
-  };
-  int t = thread_count(n_threads, rows);
-  if (t == 1) {
-    run(0, rows);
-    return;
-  }
-  std::vector<std::thread> threads;
-  for (int i = 0; i < t; ++i)
-    threads.emplace_back(run, rows * i / t, rows * (i + 1) / t);
-  for (auto& th : threads) th.join();
-}
-
-int lpr_resize_pil_bilinear(const uint8_t* src, int h, int w, uint8_t* dst,
-                            int oh, int ow) {
+int resize_pil(const uint8_t* src, int h, int w, uint8_t* dst, int oh, int ow,
+               const Filter& f) {
   if (h < 1 || w < 1 || oh < 1 || ow < 1) return -1;
   const bool need_h = ow != w, need_v = oh != h;
-  Coeffs ch = precompute(w, ow), cv = precompute(h, oh);
+  Coeffs ch = precompute(w, ow, f), cv = precompute(h, oh, f);
   // rows of the source that the vertical pass reads
   int y_first = cv.bounds[0];
   int y_last = cv.bounds[(oh - 1) * 2] + cv.bounds[(oh - 1) * 2 + 1];
@@ -206,6 +183,59 @@ int lpr_resize_pil_bilinear(const uint8_t* src, int h, int w, uint8_t* dst,
   if (!need_h && !need_v)
     memcpy(dst, src, static_cast<size_t>(h) * w * 3);
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+void lpr_letterbox_batch(const uint8_t* const* frames, int n, int h, int w,
+                         uint8_t* out, int oh, int ow, int nh, int nw,
+                         int top, int left, uint8_t fill, int n_threads) {
+  const bool pad_only = nh == h && nw == w;
+  Taps tx;
+  if (!pad_only) tx = host_letterbox::taps(w, nw);
+  const long rows = static_cast<long>(n) * oh;
+  const size_t row_bytes = static_cast<size_t>(ow) * 3;
+  auto run = [&](long r0, long r1) {
+    for (long r = r0; r < r1; ++r) {
+      int b = static_cast<int>(r / oh), y = static_cast<int>(r % oh);
+      uint8_t* drow = out + static_cast<size_t>(r) * row_bytes;
+      if (y < top || y >= top + nh) {
+        memset(drow, fill, row_bytes);
+        continue;
+      }
+      memset(drow, fill, static_cast<size_t>(left) * 3);
+      memset(drow + static_cast<size_t>(left + nw) * 3, fill,
+             static_cast<size_t>(ow - left - nw) * 3);
+      const uint8_t* src = frames[b];
+      uint8_t* dst = drow + static_cast<size_t>(left) * 3;
+      if (pad_only)
+        memcpy(dst, src + static_cast<size_t>(y - top) * w * 3,
+               static_cast<size_t>(w) * 3);
+      else
+        host_letterbox::resize_row(src, w, h, nh, y - top, tx, dst);
+    }
+  };
+  int t = thread_count(n_threads, rows);
+  if (t == 1) {
+    run(0, rows);
+    return;
+  }
+  std::vector<std::thread> threads;
+  for (int i = 0; i < t; ++i)
+    threads.emplace_back(run, rows * i / t, rows * (i + 1) / t);
+  for (auto& th : threads) th.join();
+}
+
+int lpr_resize_pil_bilinear(const uint8_t* src, int h, int w, uint8_t* dst,
+                            int oh, int ow) {
+  return resize_pil(src, h, w, dst, oh, ow, kBilinear);
+}
+
+int lpr_resize_pil_bicubic(const uint8_t* src, int h, int w, uint8_t* dst,
+                           int oh, int ow) {
+  return resize_pil(src, h, w, dst, oh, ow, kBicubic);
 }
 
 }  // extern "C"

@@ -402,11 +402,12 @@ def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
 lpsr_fused.launches = 0
 
 
-def lpsr_work(n: int, h: int, w: int) -> Tuple[int, int]:
+def lpsr_work(n: int, h: int, w: int, in_bytes: int = 2) -> Tuple[int, int]:
     """(floating-point operations, bytes) of the LPSR forward on n images
     of h x w: 2 x multiply-adds of every convolution and dense layer at its
-    own resolution; input read once (bf16), float32 output written once,
-    float32 weights read once."""
+    own resolution; input read once (``in_bytes`` a value: 2 for bf16, 4
+    for float32), float32 output written once, float32 weights read
+    once."""
     p, p2, p4 = h * w, (h // 2) * (w // 2), (h // 4) * (w // 4)
     ae = (p * 9 * 3 * 12                            # conv_in
           + p * (25 * 12 + 12 * 12)                 # enc0 dw + pw
@@ -428,7 +429,7 @@ def lpsr_work(n: int, h: int, w: int) -> Tuple[int, int]:
                  + 2 * (9 * 32 * 32 + 32) + 32 * 8 + 8 + 8 * 32 + 32
                  + 32 * 64 + 64 + 2 * (64 * 32 + 32)
                  + 128 * 32 + 32 + 9 * 32 * 32 + 32 + 9 * 32 + 1)
-    nbytes = n * p * (3 * 2 + 4) + 4 * n_weights
+    nbytes = n * p * (3 * in_bytes + 4) + 4 * n_weights
     return 2 * n * (ae + rdn), nbytes
 
 

@@ -83,9 +83,15 @@ def generator_apply(gen: Generator, x: Tensor) -> Tensor:
 
 def load_generator(path: str, device: DeviceLike = "cuda") -> Generator:
     """A generator from a flat npz checkpoint (fp16 values cast to
-    float32)."""
+    float32), or from the reference Generator's PyTorch state dict
+    (``.pth``/``.pt``, through :func:`generator_from_torch`)."""
     dev = resolve_device(device)
-    state, _ = load_state(path)
+    if str(path).endswith((".pth", ".pt")):
+        from lpr_tpu_torch.weights.torch_ckpt import load_state_dict
+
+        state = generator_from_torch(load_state_dict(path))
+    else:
+        state, _ = load_state(path)
     return Generator(state).to(dev).eval()
 
 

@@ -16,12 +16,14 @@ The reference's quirks are kept exactly, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import numpy as np
 import torch
 
 from lpr_tpu_torch.device import DeviceLike, resolve_device
 from lpr_tpu_torch.ops import nn as tnn
+from lpr_tpu_torch.weights import convert as cvt
 from lpr_tpu_torch.weights.checkpoint import State, load_state
 
 Tensor = torch.Tensor
@@ -161,10 +163,69 @@ class LPSR(torch.nn.Module):
         return torch.sigmoid(self.final_conv(y))
 
 
+def lpsr_from_torch(sd: Dict[str, np.ndarray],
+                    cfg: LPSRConfig = LPSRConfig()) -> State:
+    """The reference LPSR state dict (``best_model.pth``) as the port's flat
+    state (``lpr_tpu.models.lpsr.lpsr_from_torch``): only the executed
+    blocks are read, so the dead RDBs (``rdn.rdbs.{4,6}``), the CSAR
+    copies at the odd indices and the autoencoder's duplicate ``GA`` keys
+    are dropped."""
+    out: State = {}
+
+    def conv(key, name, bias=True):
+        out[f"{key}/w"] = cvt.conv_w(sd[f"{name}.weight"])
+        if bias and f"{name}.bias" in sd:
+            out[f"{key}/b"] = cvt.vec(sd[f"{name}.bias"])
+
+    def dconv(key, name):
+        out[f"{key}/dw/w"] = cvt.dw_conv_w(sd[f"{name}.dConv.0.weight"])
+        out[f"{key}/dw/b"] = cvt.vec(sd[f"{name}.dConv.0.bias"])
+        conv(f"{key}/pw", f"{name}.dConv.1")
+
+    conv("auto_encoder/conv_in", "auto_encoder.conv_in", bias=False)
+    for key, name in (("enc0", "encoder.0"), ("enc1", "encoder.3"),
+                      ("dec0", "decoder.0"), ("dec1", "decoder.3")):
+        dconv(f"auto_encoder/{key}", f"auto_encoder.{name}")
+    conv("auto_encoder/conv_out", "auto_encoder.conv_out", bias=False)
+    conv("rdn/shallowF1", "rdn.shallowF1")
+    conv("rdn/shallowF2", "rdn.shallowF2")
+    c = "rdn.csar"
+    conv("rdn/csar/conv_in0", f"{c}.conv_in.0")
+    conv("rdn/csar/conv_in1", f"{c}.conv_in.2")
+    for key, i in (("ca_fc1", 2), ("ca_fc2", 4)):
+        out[f"rdn/csar/{key}/w"] = cvt.linear_w(sd[f"{c}.ca.block.{i}.weight"])
+        out[f"rdn/csar/{key}/b"] = cvt.vec(sd[f"{c}.ca.block.{i}.bias"])
+    conv("rdn/csar/sa_conv1", f"{c}.sa.block.0")
+    conv("rdn/csar/sa_conv2", f"{c}.sa.block.2")
+    conv("rdn/csar/conv_out", f"{c}.conv_out")
+    for i in range(cfg.executed_rdbs):    # at even torch indices 0, 2, ...
+        name = f"rdn.rdbs.{2 * i}"
+        for j in range(cfg.num_layers):
+            conv(f"rdn/rdbs/{i}/layers/{j}", f"{name}.layers.{j}.conv")
+        conv(f"rdn/rdbs/{i}/lff", f"{name}.lff")
+        out[f"rdn/rdbs/{i}/alpha"] = np.asarray(sd[f"{name}.alpha"],
+                                                np.float32)
+    conv("rdn/gff0", "rdn.gff.0")
+    conv("rdn/gff1", "rdn.gff.1")
+    conv("final_conv", "final_conv")
+    return out
+
+
 def load_lpsr(path: str, cfg: LPSRConfig = LPSRConfig(),
               device: DeviceLike = "cuda") -> LPSR:
     """LPSR from a flat npz checkpoint such as
-    ``checkpoints/lpsr_synth_glare/best_model.npz``."""
+    ``checkpoints/lpsr_synth_glare/best_model.npz``, or from the
+    reference's PyTorch state dict (``.pth``/``.pt``,
+    :func:`lpr_tpu_torch.weights.torch_ckpt.load_state_dict`).  ONNX
+    import is not ported yet (ROADMAP section 1, item 5)."""
     dev = resolve_device(device)
-    state, _ = load_state(path)
+    if str(path).endswith(".npz"):
+        state, _ = load_state(path)
+    elif str(path).endswith((".pth", ".pt")):
+        from lpr_tpu_torch.weights.torch_ckpt import load_state_dict
+
+        state = lpsr_from_torch(load_state_dict(path), cfg)
+    else:
+        raise ValueError(f"{path}: the port loads LPSR from .npz, .pth or "
+                         f".pt; .onnx import is not ported yet")
     return LPSR(state, cfg).to(dev).eval()

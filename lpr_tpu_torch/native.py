@@ -6,7 +6,8 @@ Two plain-C libraries, built with ``g++`` at first use by
 
 - ``csrc/host_letterbox.cc`` (no dependency): the threaded NHWC batch
   letterbox of the packed detector input (:func:`letterbox_batch_into`)
-  and Pillow's bilinear resample (:func:`resize_pil_bilinear`);
+  and Pillow's bilinear and bicubic resamples (:func:`resize_pil_bilinear`,
+  :func:`resize_pil_bicubic`);
 - ``csrc/host_decode.cc`` (libjpeg, libpng): :func:`decode_image` and
   :func:`load_letterbox_batch`, the decode path of the JAX package's
   ``native/lpr_native.cc``.
@@ -57,10 +58,11 @@ def library(name: str) -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint8,
                 ctypes.c_int]
-            lib.lpr_resize_pil_bilinear.restype = ctypes.c_int
-            lib.lpr_resize_pil_bilinear.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int]
+            for fn in (lib.lpr_resize_pil_bilinear,
+                       lib.lpr_resize_pil_bicubic):
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
         else:
             lib.lpr_load_letterbox_batch.restype = ctypes.c_int
             lib.lpr_load_letterbox_batch.argtypes = [
@@ -158,22 +160,36 @@ def gather_into(frames, out) -> None:
     letterbox_batch_into(frames, out, (h, w, 0, 0))
 
 
-def resize_pil_bilinear(img: np.ndarray, out_hw: Tuple[int, int]
-                        ) -> np.ndarray:
-    """(H, W, 3) uint8 -> (oh, ow, 3) uint8, equal byte for byte to
-    Pillow's ``Image.fromarray(img).resize((ow, oh), Image.BILINEAR)``
-    (how the JAX server resizes an encoded image of another shape)."""
+def _resize_pil(fn: str, img: np.ndarray, out_hw: Tuple[int, int]
+                ) -> np.ndarray:
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected a uint8 (H, W, 3) image, got "
                          f"{img.dtype} {img.shape}")
     oh, ow = (int(v) for v in out_hw)
     out = np.empty((oh, ow, 3), np.uint8)
-    rc = library("host_letterbox").lpr_resize_pil_bilinear(
+    rc = getattr(library("host_letterbox"), fn)(
         img.ctypes.data, img.shape[0], img.shape[1], out.ctypes.data, oh, ow)
     if rc != 0:
         raise ValueError(f"cannot resize {img.shape} to {(oh, ow)}")
     return out
+
+
+def resize_pil_bilinear(img: np.ndarray, out_hw: Tuple[int, int]
+                        ) -> np.ndarray:
+    """(H, W, 3) uint8 -> (oh, ow, 3) uint8, equal byte for byte to
+    Pillow's ``Image.fromarray(img).resize((ow, oh), Image.BILINEAR)``
+    (how the JAX server resizes an encoded image of another shape)."""
+    return _resize_pil("lpr_resize_pil_bilinear", img, out_hw)
+
+
+def resize_pil_bicubic(img: np.ndarray, out_hw: Tuple[int, int]
+                       ) -> np.ndarray:
+    """(H, W, 3) uint8 -> (oh, ow, 3) uint8, equal byte for byte to
+    Pillow's ``Image.fromarray(img).resize((ow, oh), Image.BICUBIC)``,
+    ``resize``'s default (the evaluator's SR input, ``cli/sr``'s input and
+    the pasted crops of the panels)."""
+    return _resize_pil("lpr_resize_pil_bicubic", img, out_hw)
 
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:

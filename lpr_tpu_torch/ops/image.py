@@ -30,6 +30,17 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
+def uint8_to_float(x: Tensor) -> Tensor:
+    """uint8 [0, 255] -> float32 [0, 1]."""
+    return x.to(torch.float32) / 255.0
+
+
+def float_to_uint8(x: Tensor) -> Tensor:
+    """float [0, 1] -> uint8: clipped, scaled by 255 and rounded half to
+    even (``torch.round``, as ``jnp.round`` rounds in the JAX package)."""
+    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
 @functools.lru_cache(maxsize=None)
 @torch.inference_mode(False)
 def _gray_weights(dtype, device) -> Tensor:

@@ -5,7 +5,7 @@ arrays of :mod:`lpr_tpu_torch.ops.nms`, fetched as numpy."""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -45,3 +45,16 @@ def detections_to_string(boxes: np.ndarray, classes: np.ndarray,
     b = np.asarray(boxes)[idx]
     c = np.asarray(classes)[idx]
     return "".join(str(names[int(c[i])]).upper() for i in reading_order(b))
+
+
+def detections_to_string_conf(boxes: np.ndarray, classes: np.ndarray,
+                              scores: np.ndarray, valid: np.ndarray,
+                              names: Sequence[str] = OCR_CLASSES
+                              ) -> Tuple[str, float]:
+    """:func:`detections_to_string` and the mean confidence of the valid
+    characters (0.0 without any), the evaluator's confidence gate."""
+    idx = np.nonzero(np.asarray(valid))[0]
+    if len(idx) == 0:
+        return "", 0.0
+    text = detections_to_string(boxes, classes, valid, names)
+    return text, float(np.asarray(scores)[idx].mean())

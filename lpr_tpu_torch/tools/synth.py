@@ -1,14 +1,16 @@
 """Synthetic street frames made with numpy alone (no PIL), from a seed —
 inputs for the chip check and the step profiler on a machine without the
-JAX package's PIL-based renderer (tools/synth_plates.py) — and a PNG
-writer in the standard library, for the file and bytes ingestion paths."""
+JAX package's PIL-based renderer (tools/synth_plates.py).  The PNG writer
+of the file and bytes ingestion paths lives in :mod:`lpr_tpu_torch.imageio`
+(re-exported here)."""
 
 from __future__ import annotations
 
-import struct
-import zlib
-
 import numpy as np
+
+from lpr_tpu_torch.imageio import png_bytes, write_png
+
+__all__ = ["png_bytes", "synth_frames", "write_png"]
 
 
 def synth_frames(n: int, hw, seed: int) -> np.ndarray:
@@ -40,31 +42,3 @@ def synth_frames(n: int, hw, seed: int) -> np.ndarray:
                     img[gy:gy + gh, gx:gx + max(2, pw // 30)] = 25
         out[b] = np.clip(img, 0, 255).astype(np.uint8)
     return out
-
-
-def png_bytes(img: np.ndarray, level: int = 6) -> bytes:
-    """(H, W, 3) uint8 RGB -> PNG bytes (8-bit truecolour, no interlace,
-    filter 0 on every row), written with ``zlib`` and ``struct`` alone."""
-    img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected a uint8 (H, W, 3) image, got "
-                         f"{img.dtype} {img.shape}")
-    h, w, _ = img.shape
-    raw = np.zeros((h, 1 + 3 * w), np.uint8)   # filter byte 0, then the row
-    raw[:, 1:] = img.reshape(h, 3 * w)
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
-            + chunk(b"IEND", b""))
-
-
-def write_png(path, img: np.ndarray) -> None:
-    """Write ``img`` (H, W, 3) uint8 RGB to ``path`` as PNG
-    (:func:`png_bytes`)."""
-    with open(path, "wb") as f:
-        f.write(png_bytes(img))

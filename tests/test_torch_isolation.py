@@ -103,3 +103,22 @@ def test_the_walk_covers_the_int8_kernels_and_the_model_zoo():
             "lpr_tpu_torch.models.detector", "lpr_tpu_torch.models.cyclegan",
             "lpr_tpu_torch.models.lpsr_variants",
             "lpr_tpu_torch.weights.convert"} <= names
+
+
+def test_the_walk_covers_the_eval_and_cli_modules():
+    """The import probe above also walks the evaluation modules, the CLIs,
+    the image files and the annotation, so none of them may import jax,
+    lpr_tpu or PIL."""
+    import pkgutil
+
+    import lpr_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(lpr_tpu_torch.__path__,
+                                                   "lpr_tpu_torch.")}
+    assert {"lpr_tpu_torch.eval.harness", "lpr_tpu_torch.eval.metrics",
+            "lpr_tpu_torch.eval.plots", "lpr_tpu_torch.cli.run",
+            "lpr_tpu_torch.cli.sr", "lpr_tpu_torch.cli.serve",
+            "lpr_tpu_torch.cli.evaluate",
+            "lpr_tpu_torch.cli.find_improvement", "lpr_tpu_torch.imageio",
+            "lpr_tpu_torch.pipeline.annotate", "lpr_tpu_torch.pipeline.draw",
+            "lpr_tpu_torch.weights.torch_ckpt"} <= names
