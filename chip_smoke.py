@@ -13,10 +13,11 @@ Phases, each printing one line with its elapsed seconds:
    with nvcc (one process per source, all started together), loaded with
    ctypes; prints nvcc's register / shared-memory / spill report and the
    HMMA (tensor-core mma) instructions by cuobjdump -sass in
-   lpsr_kernel<bf16>, in K1's front_kernel instances but the dma one (the
-   bf16 stages and the uint8 FULL instance) and in K3's mid_kernel (fails
-   if lpsr_kernel<bf16>, front_kernel<FULL, bf16>, front_kernel<FULL,
-   uint8_t> or mid_kernel has none), the IMMA (int8 mma) instructions in
+   lpsr_kernel<bf16> and lpsr_kernel<float>, in K1's front_kernel
+   instances but the dma one (the bf16 stages and the uint8 FULL instance)
+   and in K3's mid_kernel (fails if lpsr_kernel<bf16>, lpsr_kernel<float>,
+   front_kernel<FULL, bf16>, front_kernel<FULL, uint8_t> or mid_kernel has
+   none), the IMMA (int8 mma) instructions in
    each instance of I2's conv_int8_kernel (fails if one has none), and
    nvcc's registers and spills for the uint8 instance, mid_kernel, I1 and
    I2.  Then the host libraries with g++
@@ -34,8 +35,9 @@ Phases, each printing one line with its elapsed seconds:
    bf16-exact must raise ValueError; beside K1 the model's own layers 0-2
    in bf16 through cuDNN (for the uint8 instance on bf16(u8) / 255), the
    composed library yardstick (its library_ms).  K2 also at the further
-   shapes of tests/test_torch_lpsr_kernel.py in bf16, and beside it
-   LPSR.forward in bf16, the composed library yardstick (its library_ms).
+   shapes of tests/test_torch_lpsr_kernel.py in bf16 and float32, and
+   beside it LPSR.forward in bf16, the composed library yardstick (its
+   library_ms).
    K3 also on K1's output for the further frames of tests/test_torch_mid.py
    and on its random front grids (one with a ragged tile in both axes), a
    launch with a pack that is not bf16-exact must raise ValueError, and
@@ -100,7 +102,10 @@ Phases, each printing one line with its elapsed seconds:
    images/s at batch 64; K2's float32 instance at N = 64 and N = 1 against
    its plain version (float32 TOL_*), timed (plain, kernel, kernel, plain)
    beside the float32 LPSR.forward through cuDNN with TF32 off (its
-   library_ms; the entry lpsr_f32, launches from the evaluator); cli/sr on
+   library_ms, best of 3 rounds; the entry lpsr_f32, launches from the
+   evaluator), its bound as 3xTF32 on the tensor cores (bound_ms: every
+   multiply-add three times at the TF32 rate) and, printed only, the same
+   work at the float32 CUDA-core peak; cli/sr on
    tests/fixtures/real_lr_strips (K2; its PNGs read back, (32, 192, 3) and
    within 1 LSB of the CPU run's); cli/run on the demo frame (12 copies,
    batch 4, --panel, the default 1280x1280 bf16 detector; K1 and K2; the
@@ -323,16 +328,26 @@ def apps_phase(card, counts_to_zero, counts, timed, iters):
                                          lambda: kl.lpsr_plain(x, packed32),
                                          iters)
             with torch.inference_mode():
-                lib_ms = bench_sr_convs.lpsr_forward_ms(model32, x, iters)
-            work = kl.lpsr_work(n, *LPSR_HW, in_bytes=4)
-            bound_ms, bound_by = _timing.bound_ms(work, PEAK_FP32_FLOPS)
+                lib_ms = bench_sr_convs.lpsr_forward_ms(model32, x, iters,
+                                                        rounds=3)
+            # The bound of the instance's own route, 3xTF32 on the tensor
+            # cores: every multiply-add three times at the TF32 rate.  The
+            # float32 CUDA-core figure is printed beside it, not used.
+            flops, nbytes = kl.lpsr_work(n, *LPSR_HW, in_bytes=4)
+            bound_ms, bound_by = _timing.bound_ms((3 * flops, nbytes),
+                                                  _timing.PEAK_TF32_FLOPS)
+            core_ms, _ = _timing.bound_ms((flops, nbytes), PEAK_FP32_FLOPS)
             print(f"K2 float32 timing at ({n}, {LPSR_HW[0]}, {LPSR_HW[1]}, "
                   f"3) on {card}: kernel {k_ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms (runs {runs}), library (composed "
-                  f"LPSR.forward float32, cuDNN, TF32 off) {lib_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}, float32 CUDA-core "
-                  f"peak {PEAK_FP32_FLOPS:.3g} FLOP/s; {work} FLOP, "
-                  f"B)", flush=True)
+                  f"LPSR.forward float32, cuDNN, TF32 off; best of 3 rounds) "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"3xTF32: {flops} FLOP x 3 at "
+                  f"{_timing.PEAK_TF32_FLOPS:.3g} FLOP/s TF32, {nbytes} B; "
+                  f"kernel/bound {k_ms / bound_ms:.2f}); at the float32 "
+                  f"CUDA-core peak {PEAK_FP32_FLOPS:.3g} FLOP/s "
+                  f"{core_ms:.4f} ms (kernel/that {k_ms / core_ms:.2f})",
+                  flush=True)
             k2[n] = {"max_abs_err": max_err, "ms": k_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms}
@@ -551,8 +566,9 @@ def main() -> int:
                for dt, tag in (("bf16", "__nv_bfloat16"), ("float", "IfE"))}
     print(f"K2 HMMA instructions: lpsr_kernel<bf16> {k2_hmma['bf16']}, "
           f"lpsr_kernel<float> {k2_hmma['float']}", flush=True)
-    if k2_hmma["bf16"] < 1:
-        raise AssertionError("no HMMA in lpsr_kernel<bf16>")
+    if min(k2_hmma.values()) < 1:
+        raise AssertionError(f"no HMMA in an instance of lpsr_kernel: "
+                             f"{k2_hmma}")
     # K1's instances front_kernel<STAGE, bf16> (mangled
     # front_kernelILi<STAGE>E13__nv_bfloat16) and its uint8 instance
     # front_kernel<FULL, uint8_t> (front_kernelILi3EhE); the dma one
@@ -772,7 +788,7 @@ def main() -> int:
     })
 
     # K2 — the LPSR stage, on the main path's 24 plate crops (bf16 and
-    # float32), then in bf16 at the shapes where a block owns 0-1 rows of
+    # float32), then in both at the shapes where a block owns 0-1 rows of
     # the quarter grid, M is not a multiple of 16, or a block's rows (48)
     # or the columns (400) split into slabs.
     lpsr_bf16 = load_lpsr(CKPT_LPSR).to(torch.bfloat16)
@@ -783,7 +799,8 @@ def main() -> int:
     k2_max_err = None
     for shape, dt in [((LPSR_N, *LPSR_HW), torch.bfloat16),
                       ((LPSR_N, *LPSR_HW), torch.float32)] + [
-                          (s, torch.bfloat16) for s in K2_SHAPES]:
+                          (s, dt) for s in K2_SHAPES
+                          for dt in (torch.bfloat16, torch.float32)]:
         x = (crops if shape == (LPSR_N, *LPSR_HW) else torch.rand(
             (*shape, 3), generator=gen, device="cuda")).to(dt)
         pk = lpsr_packed if dt == torch.bfloat16 else lpsr_packed32

@@ -35,32 +35,41 @@
 // adds the 8 blocks' sums in rank order from their shared memory, so all
 // use the same value and a run is deterministic.
 //
-// Two kinds of convolution stage.  The 23 wide ones (shallowF2, the 8 RDB
-// dense layers and 2 lff, the CSAR in0/in1/sa1/sa2/out twice, gff0, gff1:
-// ~95 % of the multiply-adds; every channel count a multiple of 16, every
-// epilogue plain NHWC) are implicit GEMMs on the tensor cores in the bf16
-// instance (conv_mma): M = the block's output positions, N = cout, K =
-// taps x cin, mma.sync m16n8k16 bf16 -> float32 (mma_conv.cuh).  The input
-// is staged as bf16 NHWC tiles of 16 channels ((rows + 2P) x (cols + 2P)
-// positions, 32 bytes each, 16-byte XOR swizzle so ldmatrix is conflict
-// free) with cp.async, zero-filled outside the grid, double-buffered: step
-// k + 1 lands while step k multiplies, a 1x1 stage taking several chunks a
-// step.  Each chunk's weights come with it, already bf16 in the B-operand
-// layout (lpsr_pack's second buffer), so every chunk is staged once per
-// slab.  The 8 warps split M (m16 tiles interleaved) and keep their
-// float32 accumulators, started from the float32 bias, in registers across
-// all chunks; where a block's rows do not fit one tile or its
-// accumulators, the stage walks row (and column) slabs.  The lff weights
-// (mat(lff) * alpha, up to 16 significant bits) come as an exact bf16 pair
-// hi + lo, two MMAs per step into one accumulator.  The CSAR conv_out's
-// input, the attention products, is written by each block for its own rows
-// into a free buffer first.  The other 12 stages (conv_in, conv_out,
-// final, the 7x7 shallowF1 with 3 input channels, the four depthwise 5x5
-// and the four autoencoder pointwise ones with 12/48 channels and
-// (un)shuffle epilogues) hold ~5 % of the work and keep the scalar float32
-// FMA path (conv_stage, dw5_stage): float32 channel planes in shared
-// memory, 4 positions x G channels a thread.  The float32 instance runs
-// every stage on that scalar path (TF32 would break its 1e-4 bound).
+// Two kinds of convolution stage.  The 23 wide ones (shallowF2, the 8 RDB dense
+// layers and 2 lff, the CSAR in0/in1/sa1/sa2/out twice, gff0, gff1: ~95 % of
+// the multiply-adds; every channel count a multiple of 16, every epilogue plain
+// NHWC) are implicit GEMMs on the tensor cores: M = the block's output
+// positions, N = cout, K = taps x cin; one routine (conv_mma) serves both
+// instances.  The bf16 instance uses mma.sync m16n8k16 bf16 -> float32
+// (mma_conv.cuh).  The input is staged as
+// bf16 NHWC tiles of 16 channels ((rows + 2P) x (cols + 2P) positions, 32 bytes
+// each, 16-byte XOR swizzle so ldmatrix is conflict free) with cp.async,
+// zero-filled outside the grid, double-buffered: step k + 1 lands while step k
+// multiplies, a 1x1 stage taking several chunks a step.  Each chunk's weights
+// come with it, already bf16 in the B-operand layout (lpsr_pack's second
+// buffer), so every chunk is staged once per slab.  The 8 warps split M (m16
+// tiles interleaved) and keep their float32 accumulators, started from the
+// float32 bias, in registers across all chunks; where a block's rows do not fit
+// one tile or its accumulators, the stage walks row (and column) slabs.  The
+// lff weights (mat(lff) * alpha, up to 16 significant bits) come as an exact
+// bf16 pair hi + lo, two MMAs per step into one accumulator.  The float32
+// instance runs the same GEMMs as 3xTF32: float32 tiles of 8 channels
+// (32-byte rows: the same tile layout), each A register split in
+// registers into TF32 big + small, the weights split by lpsr_pack (its TF32
+// tiles), and a_small*b_big + a_big*b_small + a_big*b_big, three mma.sync
+// m16n8k8 a k-step, into float32 accumulators: ~22 significant bits a product
+// (float32 has 24), where one TF32 product (11) would break the float32
+// instance's 1e-4 bound.  Its big + small B tiles are twice bf16's bytes a
+// chunk; two of them fit the same shared memory beside two A tiles of A_ROWS_F
+// positions, as many as a slab of its 3 m16 tiles a warp (2 rows of 192 and
+// halo) needs, so it keeps two blocks an SM and both double buffers.  The CSAR
+// conv_out's input, the attention products, is written by each block for its
+// own rows into a free buffer first.  The other 12 stages (conv_in, conv_out,
+// final, the 7x7 shallowF1 with 3 input channels, the four depthwise 5x5 and
+// the four autoencoder pointwise ones with 12/48 channels and (un)shuffle
+// epilogues) hold ~5 % of the work and keep the scalar float32 FMA path
+// (conv_stage, dw5_stage) in both instances: float32 channel planes in shared
+// memory, 4 positions x G channels a thread.
 //
 // What bounds it now.  Two blocks an SM (all 192 blocks of N = 24 resident
 // on 132 SMs) cap a thread at 128 registers, and the shared memory leaves
@@ -70,10 +79,13 @@
 // barrier each stage ends with, not by the MMA rate; the kernel's pointers,
 // offset tables and each wide stage's operands are kept in shared memory
 // (KState, MmaStage) and read where needed, which freed registers.  The
-// scalar stages cost about what they did before.
+// scalar stages cost about what they did before.  An 8-block cluster is
+// placed within one GPC, so fewer clusters than 264 / 8 run at once: the
+// kernel's time is whole waves of one image's latency.
 // The weights come as one packed float32 buffer plus an offset table
 // (lpr_tpu_torch.kernels.lpsr.PACK_KEYS, mirrored by the enum W_*) and,
-// for the wide stages, a bf16 buffer plus its offset table (MMA_KEYS,
+// for the wide stages, a buffer of B tiles in the activation type (bf16,
+// or float32 holding TF32 big + small) plus its offset table (MMA_KEYS,
 // enum M_*).
 
 #include <cooperative_groups.h>
@@ -95,19 +107,27 @@ constexpr int CLUSTER = 8;     // blocks per image
 constexpr int NTHREADS = 256;
 constexpr int PX = 4;          // positions per thread work item
 // Shared memory: a convolution stage's region, then the CA reduction and
-// vector (AUX).  A tensor-core stage splits its region into two A tiles
-// (A_ROWS positions of 16 bf16 channels: 6 x 194 at 32x192 with the 3x3
-// halo) and two B tiles (one chunk's weights: 9 taps x 32 outputs x 16
+// vector (AUX).  A bf16 tensor-core stage splits its region into two A
+// tiles (A_ROWS positions of 16 bf16 channels: 6 x 194 at 32x192 with the
+// 3x3 halo) and two B tiles (one chunk's weights: 9 taps x 32 outputs x 16
 // channels); the scalar stages use it as float32 planes.  101 KB a block:
 // two blocks an SM.
 constexpr int A_ROWS = 1168;
 constexpr int A_BYTES = A_ROWS * 32;
 constexpr int B_BYTES = 9 * 32 * 32;
 constexpr int CONV_FLOATS = 2 * (A_BYTES + B_BYTES) / 4;
+// The float32 instance's tensor-core stages split the same region into two
+// A tiles of A_ROWS_F (880) positions of 8 float32 channels (32 bytes
+// each; 4 x 194 at 32x192) and two B tiles (one chunk's weights as TF32
+// big + small: 2 x 9 taps x 32 outputs x 8 channels).
+constexpr int B_BYTES_F = 2 * 9 * 32 * 32;
+constexpr int A_BYTES_F = (CONV_FLOATS * 4 / 2 - B_BYTES_F) & ~127;
+constexpr int A_ROWS_F = A_BYTES_F / 32;
 constexpr int AUX_FLOATS = 2560;
 constexpr int SMEM_FLOATS = CONV_FLOATS + AUX_FLOATS;
 constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
 static_assert(SMEM_BYTES <= 113 * 1024, "two blocks an SM");
+static_assert(2 * (A_BYTES_F + B_BYTES_F) <= CONV_FLOATS * 4, "A_BYTES_F");
 
 enum WKey {
   W_AE_CONV_IN_W,
@@ -543,13 +563,14 @@ __device__ __noinline__ void conv_stage(float* sm, int rank, int hr, int wr,
 // stages a step or stores a slab, so that they hold no registers across
 // its inner loop: spilled registers miss the L1 that the shared memory
 // leaves and wait on L2.
+template <class T>
 struct MmaStage {
-  const bf16* in;
-  const bf16* wm;
+  const T* in;
+  const T* wm;
   const float* bias;
-  bf16* out;
-  const bf16* res;
-  bf16* out2;
+  T* out;
+  const T* res;
+  T* out2;
   int in_cs, out_cs, res_cs, out2_cs;      // channels a position
   int hr, wr, r0, r1, rs, cs, ncx, nchunk, nsub, nps, nstep, sub;
 };
@@ -560,7 +581,8 @@ struct MmaStep {
   int y0, x0, rows, cols, c0, nc;
 };
 
-__device__ __forceinline__ MmaStep mma_step(const volatile MmaStage& d,
+template <class T>
+__device__ __forceinline__ MmaStep mma_step(const volatile MmaStage<T>& d,
                                             int k) {
   const int nps = d.nps, ncx = d.ncx, rs = d.rs, cs = d.cs;
   const int s = k / nps, sy = s / ncx, sx = s - sy * ncx;
@@ -574,40 +596,93 @@ __device__ __forceinline__ MmaStep mma_step(const volatile MmaStage& d,
   return t;
 }
 
+// What differs between the instances' wide stages, besides the MMA:
+// channels a staged chunk (one 32-byte row a position), the A and B tile
+// sizes, and how two adjacent output channels add their residual and are
+// stored.
+template <class T> struct Wide;
+template <> struct Wide<bf16> {
+  static constexpr int CH = 16, AR = A_ROWS, AB = A_BYTES, BB = B_BYTES;
+  typedef __nv_bfloat162 T2;
+  static __device__ __forceinline__ T2 pair(float v0, float v1) {
+    return __floats2bfloat162_rn(v0, v1);
+  }
+  // v += the two bf16 residuals at p (the lower channel in the low half),
+  // v rounded to bf16 first
+  static __device__ __forceinline__ void add_res(float& v0, float& v1,
+                                                 const bf16* p) {
+    const unsigned r = __ldcg(reinterpret_cast<const unsigned*>(p));
+    v0 = __uint_as_float(r << 16) + rnd<bf16>(v0);
+    v1 = __uint_as_float(r & 0xffff0000u) + rnd<bf16>(v1);
+  }
+};
+template <> struct Wide<float> {
+  static constexpr int CH = 8, AR = A_ROWS_F, AB = A_BYTES_F, BB = B_BYTES_F;
+  typedef float2 T2;
+  static __device__ __forceinline__ T2 pair(float v0, float v1) {
+    return make_float2(v0, v1);
+  }
+  static __device__ __forceinline__ void add_res(float& v0, float& v1,
+                                                 const float* p) {
+    const float2 r = __ldcg(reinterpret_cast<const float2*>(p));
+    v0 += r.x;
+    v1 += r.y;
+  }
+};
+
 // One KxK / stride-1 / 'same' convolution over the block's own rows of an
-// (hr, wr) grid on the tensor cores (bf16 only): cin -> NT*8 channels, cin
-// a multiple of 16, input channels [coff, coff + cin) of `src` (cs % 8 ==
-// 0, coff % 16 == 0), output through `dst` with epilogue MODE (EP_STORE,
-// EP_RELU, EP_RESID or EP_SIGMOID, rounded as store_dst rounds).  `wm`
-// holds the stage's weights as bf16 B tiles, chunk-major: for each
-// 16-channel chunk, PARTS x K*K taps x NT*8 output rows of 32 bytes,
-// swizzled as mma_conv.cuh says (PARTS == 2: an exact pair hi, lo, both
-// multiplied into one accumulator).  `st` is the block's MmaStage.
+// (hr, wr) grid on the tensor cores: cin -> NT*8 channels, cin a multiple
+// of 16, input channels [coff, coff + cin) of `src` (cs % 8 == 0, coff % 16
+// == 0), output through `dst` with epilogue MODE (EP_STORE, EP_RELU,
+// EP_RESID or EP_SIGMOID, rounded as store_dst rounds).  `st` is the
+// block's MmaStage.
+//
+// bf16: mma.sync m16n8k16 over chunks of 16 channels.  `wm` holds the
+// stage's weights as bf16 B tiles, chunk-major: for each chunk, PARTS x
+// K*K taps x NT*8 output rows of 32 bytes, swizzled as mma_conv.cuh says
+// (PARTS == 2: an exact pair hi, lo, both multiplied into one
+// accumulator).
+//
+// float32, as 3xTF32: mma.sync m16n8k8 .tf32 over chunks of 8 float32
+// channels, one 32-byte row a position, so the tile layout, swizzle and
+// ldmatrix addressing are bf16's (mma_conv.cuh gives the fragments).  Each
+// A register is split in registers into TF32 big + small (tf32_split);
+// `wm` holds the weights already split, chunk-major: for each chunk, big
+// then small, each K*K taps x NT*8 output rows of 32 bytes (lpsr_pack's
+// TF32 tiles).  Every k-step adds a_small * b_big, a_big * b_small and
+// a_big * b_big: each product keeps ~22 of float32's 24 bits, and the
+// stores round nothing (the float32 epilogues of store_dst).
 //
 // The block's rows are cut into slabs of whole rows (and, for a very wide
-// grid, columns) whose halo'd tile fits A_ROWS and whose positions fit the
-// warps' accumulators (8 warps x MT m16 tiles, interleaved).  A step
-// stages NSUB consecutive chunks of one slab (as many as the A and B tiles
-// hold: several for a 1x1 stage, one for a 3x3) into one of two buffers
-// with cp.async, while the step before multiplies; the slab's last step
-// ends with the epilogue.
-template <int K, int NT, int PARTS, int MODE>
-__device__ __forceinline__ void conv_mma(float* smf, MmaStage* st, int rank,
-                                         int hr, int wr, int cin,
-                                         const bf16* __restrict__ wm,
+// grid, columns) whose halo'd tile fits the A tile and whose positions fit
+// the warps' accumulators (8 warps x MT m16 tiles, interleaved), which
+// start from the float32 bias.  A step stages NSUB consecutive chunks of
+// one slab (as many as the A and B tiles hold: several for a 1x1 stage,
+// one for a 3x3) into one of two buffers with cp.async, while the step
+// before multiplies; the slab's last step ends with the epilogue.
+template <int K, int NT, int PARTS, int MODE, class T>
+__device__ __forceinline__ void conv_mma(float* smf, MmaStage<T>* st,
+                                         int rank, int hr, int wr, int cin,
+                                         const T* __restrict__ wm,
                                          const float* __restrict__ bias,
-                                         const Src<bf16>& src,
-                                         const Dst<bf16>& dst) {
+                                         const Src<T>& src,
+                                         const Dst<T>& dst) {
   using namespace mma_conv;
-  constexpr int P = K / 2, TAPS = K * K, COUT = NT * 8;
-  // m16 tiles per warp under the 128-register cap of two blocks an SM:
-  // 6 for 16 output channels (one slab of 768 positions at 32x192), 2 for
-  // 32 or 64 (the measured best of 12 / NT, 8 / NT and these).
-  constexpr int MT = NT == 2 ? 6 : 2;
+  typedef Wide<T> G;
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  constexpr int P = K / 2, TAPS = K * K, COUT = NT * 8, CH = G::CH;
+  // B tiles a chunk: bf16 the weight, or (PARTS == 2) its exact pair hi,
+  // lo; float32 TF32 big, small (the lff too: 3xTF32 covers it).
+  constexpr int NPART = BF ? PARTS : 2;
+  // m16 tiles per warp under the 128-register cap of two blocks an SM.
+  // bf16: 6 for 16 output channels (one slab of 768 positions at 32x192),
+  // 2 for 32 or 64 (the measured best of 12 / NT, 8 / NT and these).
+  // float32: 3 (two rows of 192 a slab) for 16 or 32, 1 for 64.
+  constexpr int MT = BF ? (NT == 2 ? 6 : 2) : (NT == 8 ? 1 : 3);
   constexpr int MAXPOS = (NTHREADS / 32) * MT * 16;
-  constexpr int BCHUNK = PARTS * TAPS * COUT * 32;     // bytes per chunk
+  constexpr int BCHUNK = NPART * TAPS * COUT * 32;     // bytes per chunk
   static_assert(NT % 2 == 0 && MT >= 1, "two n8 tiles per ldmatrix");
-  static_assert(BCHUNK <= B_BYTES, "a chunk's weights fit a B tile");
+  static_assert(BCHUNK <= G::BB, "a chunk's weights fit a B tile");
   int r0, r1;
   own_rows(hr, rank, r0, r1);
   const int nrows = r1 - r0;
@@ -616,47 +691,48 @@ __device__ __forceinline__ void conv_mma(float* smf, MmaStage* st, int rank,
   if (tid == 0) {
     // Slabs: ncx column pieces of cs columns, nry row pieces of rs rows;
     // nsub chunks a step, in sub-tiles of the largest slab's tile.
-    const int cs_max = min(MAXPOS, A_ROWS / (1 + 2 * P) - 2 * P);
+    const int cs_max = min(MAXPOS, G::AR / (1 + 2 * P) - 2 * P);
     const int ncx = (wr + cs_max - 1) / cs_max;
     const int cs = (wr + ncx - 1) / ncx;
-    int rs = min(nrows, min(MAXPOS / cs, A_ROWS / (cs + 2 * P) - 2 * P));
+    int rs = min(nrows, min(MAXPOS / cs, G::AR / (cs + 2 * P) - 2 * P));
     const int nry = (nrows + rs - 1) / rs;
     rs = (nrows + nry - 1) / nry;
-    const int nchunk = cin / 16;
+    const int nchunk = cin / CH;
     const int sub = ((rs + 2 * P) * (cs + 2 * P) * 32 + 127) & ~127;
-    const int nsub = min(nchunk, min(A_BYTES / sub, B_BYTES / BCHUNK));
+    const int nsub = min(nchunk, min(G::AB / sub, G::BB / BCHUNK));
     const int nps = (nchunk + nsub - 1) / nsub;
-    *st = MmaStage{src.buf + src.coff, wm, bias, dst.buf + dst.coff,
-                   dst.res + dst.res_coff, dst.buf2, src.cs, dst.cs,
-                   dst.res_cs, dst.cs2, hr, wr, r0, r1, rs, cs, ncx,
-                   nchunk, nsub, nps, nry * ncx * nps, sub};
+    *st = MmaStage<T>{src.buf + src.coff, wm, bias, dst.buf + dst.coff,
+                      dst.res + dst.res_coff, dst.buf2, src.cs, dst.cs,
+                      dst.res_cs, dst.cs2, hr, wr, r0, r1, rs, cs, ncx,
+                      nchunk, nsub, nps, nry * ncx * nps, sub};
   }
   __syncthreads();
-  const volatile MmaStage& d = *st;
+  const volatile MmaStage<T>& d = *st;
   char* const sm = reinterpret_cast<char*>(smf);
-  const uint32_t a_sm = smem_u32(sm), b_sm = smem_u32(sm + 2 * A_BYTES);
+  const uint32_t a_sm = smem_u32(sm), b_sm = smem_u32(sm + 2 * G::AB);
 
   // Stage step k's chunks and their weights into buffer k & 1.
   auto fetch = [&](int k) {
     const MmaStep t = mma_step(d, k);
     const int tc = t.cols + 2 * P, n = (t.rows + 2 * P) * tc * 2;
     const int h_r = d.hr, w_r = d.wr, in_cs = d.in_cs, sub = d.sub;
-    const uint32_t a = a_sm + (k & 1) * A_BYTES;
+    const uint32_t a = a_sm + (k & 1) * G::AB;
     for (int j = 0; j < t.nc; ++j) {
-      const bf16* g0 = d.in + (t.c0 + j) * 16;
+      const T* g0 = d.in + (t.c0 + j) * CH;
       for (int e = tid; e < n; e += NTHREADS) {
         const int q = e >> 1, h = e & 1;
         const int ty = q / tc, tx = q - ty * tc;
         const int gy = t.y0 - P + ty, gx = t.x0 - P + tx;
         const bool in = gy >= 0 && gy < h_r && gx >= 0 && gx < w_r;
         cp_async16(a + j * sub + swz(q, h),
-                   in ? g0 + ((size_t)gy * w_r + gx) * in_cs + h * 8 : g0,
+                   in ? g0 + ((size_t)gy * w_r + gx) * in_cs + h * (CH / 2)
+                      : g0,
                    in);
       }
     }
     const char* w =
         reinterpret_cast<const char*>(d.wm) + (size_t)t.c0 * BCHUNK;
-    const uint32_t b = b_sm + (k & 1) * B_BYTES;
+    const uint32_t b = b_sm + (k & 1) * G::BB;
     for (int e = tid; e < t.nc * BCHUNK / 16; e += NTHREADS)
       cp_async16(b + e * 16, w + e * 16, true);
     cp_async_commit();
@@ -699,17 +775,17 @@ __device__ __forceinline__ void conv_mma(float* smf, MmaStage* st, int rank,
         }
       }
     }
-    const uint32_t a_buf = a_sm + (k & 1) * A_BYTES;
-    const uint32_t b_buf = b_sm + (k & 1) * B_BYTES;
+    const uint32_t a_buf = a_sm + (k & 1) * G::AB;
+    const uint32_t b_buf = b_sm + (k & 1) * G::BB;
     const int sub = d.sub;
 #pragma unroll 1
     for (int j = 0; j < nc; ++j) {
 #pragma unroll 1
       for (int t = 0; t < TAPS; ++t) {
         const int dq = (t / K) * tc + t % K;
-        uint32_t bf[PARTS][NT][2];
+        uint32_t bf[NPART][NT][2];
 #pragma unroll
-        for (int part = 0; part < PARTS; ++part) {
+        for (int part = 0; part < NPART; ++part) {
 #pragma unroll
           for (int jn = 0; jn < NT; jn += 2) {
             const int row = (part * TAPS + t) * COUT + jn * 8 +
@@ -729,11 +805,40 @@ __device__ __forceinline__ void conv_mma(float* smf, MmaStage* st, int rank,
         for (int i = 0; i < MT; ++i) {
           uint32_t a[4];
           ldmatrix_x4(a, a_buf + j * sub + swz(qa[i] + dq, lane >> 4));
+          if constexpr (BF) {
 #pragma unroll
-          for (int part = 0; part < PARTS; ++part)
+            for (int part = 0; part < PARTS; ++part)
 #pragma unroll
-            for (int jn = 0; jn < NT; ++jn)
-              mma_bf16(acc[i][jn], a, bf[part][jn][0], bf[part][jn][1]);
+              for (int jn = 0; jn < NT; ++jn)
+                mma_bf16(acc[i][jn], a, bf[part][jn][0], bf[part][jn][1]);
+          } else {
+            // A k-step's three products go into a zeroed partial sum that
+            // a float32 add (round to nearest) then takes into the
+            // accumulator: the tensor cores' own accumulation truncates,
+            // and with up to 270 MMAs straight into one accumulator (rdb
+            // d3) the output drifted about 20x further from lpsr_plain.
+            constexpr int PNT = NT < 4 ? NT : 4;   // n8 tiles a partial sum
+            uint32_t big[4], small[4];
+            tf32_split(a, big, small);
+#pragma unroll
+            for (int j0 = 0; j0 < NT; j0 += PNT) {
+              float part[PNT][4] = {};
+#pragma unroll
+              for (int jn = 0; jn < PNT; ++jn)
+                mma_tf32(part[jn], small, bf[0][j0 + jn][0],
+                         bf[0][j0 + jn][1]);
+#pragma unroll
+              for (int jn = 0; jn < PNT; ++jn)
+                mma_tf32(part[jn], big, bf[1][j0 + jn][0], bf[1][j0 + jn][1]);
+#pragma unroll
+              for (int jn = 0; jn < PNT; ++jn)
+                mma_tf32(part[jn], big, bf[0][j0 + jn][0], bf[0][j0 + jn][1]);
+#pragma unroll
+              for (int jn = 0; jn < PNT; ++jn)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) acc[i][j0 + jn][r] += part[jn][r];
+            }
+          }
         }
       }
     }
@@ -742,9 +847,9 @@ __device__ __forceinline__ void conv_mma(float* smf, MmaStage* st, int rank,
       // Epilogue: lane holds rows lane/4 and lane/4 + 8 of each m16 tile,
       // channels jn*8 + 2*(lane%4) and + 1 of each n8 tile.
       const int np = t.rows * t.cols, wr_ = d.wr;
-      bf16* const out = d.out;
-      const bf16* const res = d.res;
-      bf16* const out2 = d.out2;
+      T* const out = d.out;
+      const T* const res = d.res;
+      T* const out2 = d.out2;
       const int out_cs = d.out_cs, res_cs = d.res_cs, out2_cs = d.out2_cs;
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -763,22 +868,18 @@ __device__ __forceinline__ void conv_mma(float* smf, MmaStage* st, int rank,
               v0 = fmaxf(v0, 0.0f);
               v1 = fmaxf(v1, 0.0f);
             } else if constexpr (MODE == EP_RESID) {
-              // two bf16 residuals: the lower channel in the low half
-              const unsigned r = __ldcg(reinterpret_cast<const unsigned*>(
-                  res + pos * res_cs + jn * 8 + c));
-              v0 = __uint_as_float(r << 16) + rnd<bf16>(v0);
-              v1 = __uint_as_float(r & 0xffff0000u) + rnd<bf16>(v1);
+              G::add_res(v0, v1, res + pos * res_cs + jn * 8 + c);
             } else if constexpr (MODE == EP_SIGMOID) {
-              v0 = sigmoidf(rnd<bf16>(v0));
-              v1 = sigmoidf(rnd<bf16>(v1));
+              v0 = sigmoidf(rnd<T>(v0));
+              v1 = sigmoidf(rnd<T>(v1));
             } else {
               static_assert(MODE == EP_STORE, "a plain NHWC epilogue");
             }
-            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-            *reinterpret_cast<__nv_bfloat162*>(out + pos * out_cs + jn * 8 +
+            const typename G::T2 v = G::pair(v0, v1);
+            *reinterpret_cast<typename G::T2*>(out + pos * out_cs + jn * 8 +
                                                c) = v;
             if (MODE == EP_RESID && out2 != nullptr)
-              *reinterpret_cast<__nv_bfloat162*>(out2 + pos * out2_cs +
+              *reinterpret_cast<typename G::T2*>(out2 + pos * out2_cs +
                                                  jn * 8 + c) = v;
           }
         }
@@ -828,7 +929,7 @@ __device__ __noinline__ void dw5_stage(int rank, int hr, int wr, int c,
 template <class T>
 struct KState {
   const float* wb;
-  const bf16* wm;
+  const T* wm;
   T* bufs[NBUF];
   int off[W_COUNT];
   int moff[M_COUNT];
@@ -837,31 +938,26 @@ struct KState {
 template <class T>
 struct Img {
   const KState<T>* ks;
-  MmaStage* stage;               // the wide stages' MmaStage
+  MmaStage<T>* stage;            // the wide stages' MmaStage
   float* sm;
   int rank, H, W;
   __device__ const volatile KState<T>& s() const {
     return *const_cast<const volatile KState<T>*>(ks);
   }
   __device__ const float* wt(int k) const { return s().wb + s().off[k]; }
-  __device__ const bf16* mw(int k) const { return s().wm + s().moff[k]; }
+  __device__ const T* mw(int k) const { return s().wm + s().moff[k]; }
   __device__ T* buf(int b) const { return s().bufs[b]; }
 };
 
 // One of the 23 wide convolution stages at full resolution, cin -> NT*8
-// channels with float32 weights at W key `wkey` (its bias at wkey + 1)
-// and bf16 B tiles at M key `mkey`, epilogue MODE (== dst.mode): on the
-// tensor cores in the bf16 instance, the scalar path in the float32 one.
+// channels with its bias at W key `wkey` + 1 and B tiles at M key `mkey`
+// (bf16, or TF32 big + small in the float32 instance), epilogue MODE
+// (== dst.mode): on the tensor cores, in bf16 or as 3xTF32.
 template <int K, int NT, int PARTS, int MODE, class T>
 __device__ __forceinline__ void wide_conv(const Img<T>& im, int cin, int wkey,
                                           int mkey, Src<T> src, Dst<T> dst) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    conv_mma<K, NT, PARTS, MODE>(im.sm, im.stage, im.rank, im.H, im.W, cin,
-                                 im.mw(mkey), im.wt(wkey + 1), src, dst);
-  } else {
-    conv_stage<K, 8, T>(im.sm, im.rank, im.H, im.W, cin, NT * 8, im.wt(wkey),
-                        im.wt(wkey + 1), src, dst);
-  }
+  conv_mma<K, NT, PARTS, MODE>(im.sm, im.stage, im.rank, im.H, im.W, cin,
+                               im.mw(mkey), im.wt(wkey + 1), src, dst);
 }
 
 // RDB: four dense 3x3 convs (32, 48, 64, 80 -> 16, ReLU) appended to the
@@ -1042,13 +1138,13 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
     __launch_bounds__(NTHREADS, 2)
     lpsr_kernel(const T* __restrict__ x, const float* __restrict__ wb,
                 const __grid_constant__ Offsets off,
-                const bf16* __restrict__ wm,
+                const T* __restrict__ wm,
                 const __grid_constant__ MOffsets moff,
                 T* __restrict__ scratch, float* __restrict__ out, int H,
                 int W) {
   extern __shared__ __align__(128) float sm[];
   __shared__ KState<T> ks;
-  __shared__ MmaStage stage;
+  __shared__ MmaStage<T> stage;
   const int rank = (int)cg::this_cluster().block_rank();
   const int img = blockIdx.x / CLUSTER;
   {
@@ -1169,16 +1265,15 @@ int launch(const void* x, const void* wbuf, const int* offsets,
       return (int)cudaErrorInvalidValue;
     off.o[i] = offsets[i];
   }
-  // The bf16 B tiles: 16-byte aligned (8 elements), read by the bf16
-  // instance only.
+  // The B tiles (bf16, or TF32 big + small): 16-byte aligned, offsets in
+  // multiples of 8 elements.
   MOffsets moff;
   for (int i = 0; i < M_COUNT; ++i) {
     if (mma_offsets[i] < 0 || mma_offsets[i] % 8 != 0)
       return (int)cudaErrorInvalidValue;
     moff.o[i] = mma_offsets[i];
   }
-  if (std::is_same<T, bf16>::value &&
-      (wmma == nullptr || reinterpret_cast<uintptr_t>(wmma) % 16 != 0))
+  if (wmma == nullptr || reinterpret_cast<uintptr_t>(wmma) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       lpsr_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1186,7 +1281,7 @@ int launch(const void* x, const void* wbuf, const int* offsets,
   if (err != cudaSuccess) return (int)err;
   lpsr_kernel<T><<<n * CLUSTER, NTHREADS, SMEM_BYTES,
                    (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)wbuf, off, (const bf16*)wmma, moff,
+      (const T*)x, (const float*)wbuf, off, (const T*)wmma, moff,
       (T*)scratch, (float*)out, h, w);
   return (int)cudaGetLastError();
 }
@@ -1196,10 +1291,11 @@ int launch(const void* x, const void* wbuf, const int* offsets,
 // Launch K2 on `stream`; returns cudaGetLastError() after the launch (0 on
 // success).  x (n, h, w, 3) in the activation type; wbuf the packed float32
 // weights and `offsets` (host memory) their 62 offsets in PACK_KEYS order;
-// wmma the wide stages' bf16 B tiles and `mma_offsets` (host memory) their
-// 18 offsets in MMA_KEYS order (read by the bf16 instance; the float32 one
-// runs those stages from wbuf); scratch n * lpr_lpsr_scratch_elems(h, w)
-// elements of the activation type; out (n, h, w, 1) float32.
+// wmma the wide stages' B tiles in the activation type (bf16, or the
+// float32 instance's TF32 big + small) and `mma_offsets` (host memory)
+// their 18 offsets in MMA_KEYS order; scratch n *
+// lpr_lpsr_scratch_elems(h, w) elements of the activation type; out (n, h,
+// w, 1) float32.
 extern "C" int lpr_lpsr_bf16(const void* x, const void* wbuf,
                              const int* offsets, int n_offsets,
                              const void* wmma, const int* mma_offsets,
@@ -1218,7 +1314,7 @@ extern "C" int lpr_lpsr_f32(const void* x, const void* wbuf,
                        scratch, out, n, h, w, stream);
 }
 
-// Entries of the bf16 B-tile table (MMA_KEYS).
+// Entries of the B-tile table (MMA_KEYS).
 extern "C" int lpr_lpsr_n_mma(void) { return M_COUNT; }
 
 // Scratch elements per image, or -1 for a shape the kernel does not take.

@@ -6,13 +6,15 @@
   with each RDB's residual scale ``alpha`` folded into its ``lff`` weight
   and bias (as ``lpsr_pallas`` folds it), and the 23 wide stages' weights
   once more as bf16 tiles in the tensor cores' B-operand layout (the
-  folded ``lff`` as an exact bf16 pair hi + lo).
+  folded ``lff`` as an exact bf16 pair hi + lo) and, for a float32 model,
+  as TF32 tiles: each weight split into ``big + small``
+  (:func:`tf32_round`), which the float32 kernel multiplies as 3xTF32.
 - :func:`lpsr_fused` — the wrapper.  A CUDA tensor goes to the kernel in
   ``lpr_tpu_torch/csrc/lpsr.cu`` (built with nvcc, loaded with ctypes) or
   raises; only a CPU tensor takes the plain version.
 - :func:`lpsr_work`, :func:`lpsr_stage_work` — what the forward computes,
   in all and by kernel stage (:data:`STAGES`; :data:`MMA_STAGES` run on
-  the tensor cores in the bf16 kernel).
+  the tensor cores, in bf16 or as 3xTF32).
 - :func:`lpsr_plain` — the same function in plain PyTorch, reading the same
   packed buffer and rounding where the kernel rounds: every convolution
   sums in float32 over the stored inputs, adds its bias in float32 and
@@ -31,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,7 +83,7 @@ MMA_KEYS: Tuple[str, ...] = (
     + ("gff0", "gff1"))
 
 # K2's 35 stages in launch order (one cluster barrier after each), and the
-# 23 that the bf16 kernel runs on the tensor cores.
+# 23 that the kernel runs on the tensor cores (bf16, or 3xTF32 in float32).
 STAGES: Tuple[str, ...] = tuple(
     ["conv_in", "enc0.dw", "enc0.pw", "enc1.dw", "enc1.pw", "dec0.dw",
      "dec0.pw", "dec1.dw", "dec1.pw", "conv_out", "sf1", "sf2"]
@@ -104,14 +106,18 @@ class LpsrPacked:
     :data:`PACK_KEYS`; the bf16 B tiles of the wide stages (``mma``) and
     their offsets (in elements, a multiple of 8) in :data:`MMA_KEYS` order;
     each RDB's folded ``lff`` weight as its bf16 pair (``lff_hi[r]``,
-    ``lff_lo[r]``, (96, 32)); and ``bf16_exact``: whether those tiles hold
+    ``lff_lo[r]``, (96, 32)); ``bf16_exact``: whether those tiles hold
     the float32 weights exactly (every other wide weight representable in
-    bf16, hi + lo == lff bit for bit), which the bf16 kernel needs."""
+    bf16, hi + lo == lff bit for bit), which the bf16 kernel needs; and,
+    for a float32 model, the TF32 B tiles that the float32 kernel reads
+    (``tf32``, float32, each weight as ``big`` and ``small``) and their
+    offsets in :data:`MMA_KEYS` order (else None and ())."""
 
     def __init__(self, buf: Tensor, entries: Dict[str, Tuple[int, tuple]],
                  mma: Tensor, mma_offsets: Tuple[int, ...],
                  lff_hi: Tuple[Tensor, ...], lff_lo: Tuple[Tensor, ...],
-                 bf16_exact: bool):
+                 bf16_exact: bool, tf32: Optional[Tensor] = None,
+                 tf32_offsets: Tuple[int, ...] = ()):
         self.buf = buf
         self.entries = entries
         self.offsets = tuple(entries[k][0] for k in PACK_KEYS)
@@ -120,10 +126,32 @@ class LpsrPacked:
         self.lff_hi = lff_hi
         self.lff_lo = lff_lo
         self.bf16_exact = bf16_exact
+        self.tf32 = tf32
+        self.tf32_offsets = tf32_offsets
 
     def __getitem__(self, key: str) -> Tensor:
         off, shape = self.entries[key]
         return self.buf[off:off + math.prod(shape)].view(shape)
+
+    def tiles(self, dtype: torch.dtype) -> Tuple[Tensor, Tuple[int, ...]]:
+        """The wide stages' B tiles and offsets that the kernel instance of
+        ``dtype`` reads: ``mma`` for bfloat16, ``tf32`` for float32
+        (ValueError if this pack has none: pack a float32 model)."""
+        if dtype == torch.bfloat16:
+            return self.mma, self.mma_offsets
+        if self.tf32 is None:
+            raise ValueError("the float32 kernel runs its wide stages on "
+                             "TF32 tiles, which only a float32 model's pack "
+                             "holds: pack the model in float32")
+        return self.tf32, self.tf32_offsets
+
+
+def tf32_round(x: Tensor) -> Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits, round to nearest,
+    ties away from zero: ``cvt.rna.tf32.f32``), as float32 with the 13 low
+    mantissa bits zero.  For finite values."""
+    u = x.float().contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
 
 
 def lpsr_kernel_takes(cfg) -> bool:
@@ -140,9 +168,9 @@ def lpsr_pack(model) -> LpsrPacked:
     """Pack a :class:`~lpr_tpu_torch.models.lpsr.LPSR` whose configuration
     the kernel takes (:func:`lpsr_kernel_takes`) into an
     :class:`LpsrPacked` on the model's device, holding the model's own
-    values (a bf16 model packs bf16-representable weights); ``alpha`` is
-    folded into each RDB's ``lff``.  Raises ValueError on another
-    configuration."""
+    values (a bf16 model packs bf16-representable weights; only a float32
+    model gets the TF32 tiles); ``alpha`` is folded into each RDB's
+    ``lff``.  Raises ValueError on another configuration."""
     cfg = model.cfg
     if not lpsr_kernel_takes(cfg):
         raise ValueError(f"the LPSR kernel takes the production "
@@ -216,23 +244,36 @@ def lpsr_pack(model) -> LpsrPacked:
             ws = [v.to(torch.bfloat16)]
             exact = exact and torch.equal(ws[0].float(), v)
         mma_offsets.append(moff)
-        tiles.append(_b_tiles(ws))
+        tiles.append(_b_tiles(ws, 16))
         moff += tiles[-1].numel()
+    # The float32 kernel's TF32 tiles: every wide weight (the folded lff
+    # too) as big = tf32(w) and small = tf32(w - big), 8 channels a chunk.
+    tf32, tf32_offsets = None, ()
+    if model.shallowF2.w.dtype == torch.float32:
+        t32, offs, o = [], [], 0
+        for key in MMA_KEYS:
+            v = w[f"{key}.w"]
+            big = tf32_round(v)
+            offs.append(o)
+            t32.append(_b_tiles([big, tf32_round(v - big)], 8))
+            o += t32[-1].numel()
+        tf32, tf32_offsets = torch.cat(t32).contiguous(), tuple(offs)
     return LpsrPacked(torch.cat(parts).contiguous(), entries,
                       torch.cat(tiles).contiguous(), tuple(mma_offsets),
-                      lff_hi, lff_lo, bool(exact))
+                      lff_hi, lff_lo, bool(exact), tf32, tf32_offsets)
 
 
-def _b_tiles(parts: List[Tensor]) -> Tensor:
-    """One wide stage's bf16 weights (each part HWIO (k, k, cin, cout) or
-    (cin, cout); two parts for an exact pair hi, lo) as the kernel stages
-    them, flat: per 16-channel input chunk, per part, per tap, per output
-    channel n one 32-byte row of its 16 input channels, whose two 16-byte
-    halves are swapped where bit 2 of n is set (the XOR swizzle of
-    csrc/mma_conv.cuh)."""
+def _b_tiles(parts: List[Tensor], chunk: int) -> Tensor:
+    """One wide stage's weights (each part HWIO (k, k, cin, cout) or
+    (cin, cout): one bf16 part, an exact bf16 pair hi, lo, or a TF32 pair
+    big, small) as the kernel stages them, flat: per ``chunk``-channel
+    input chunk (16 bf16 or 8 float32 channels: 32 bytes), per part, per
+    tap, per output channel n one 32-byte row of its input channels, whose
+    two 16-byte halves are swapped where bit 2 of n is set (the XOR swizzle
+    of csrc/mma_conv.cuh)."""
     w = torch.stack([v.reshape(-1, *v.shape[-2:]) for v in parts])
     n_parts, taps, cin, cout = w.shape
-    w = w.reshape(n_parts, taps, cin // 16, 2, 8, cout)
+    w = w.reshape(n_parts, taps, cin // chunk, 2, chunk // 2, cout)
     w = w.permute(2, 0, 1, 5, 3, 4)          # chunk, part, tap, n, half, 8
     swap = ((torch.arange(cout, device=w.device) >> 2) & 1).bool()
     w = torch.where(swap[:, None, None], w.flip(4), w)
@@ -318,8 +359,9 @@ def lpsr_errors(got: Tensor, ref: Tensor) -> Tuple[float, float]:
     return err.max().item(), err.mean().item()
 
 
-# lpr_lpsr_bf16 / lpr_lpsr_f32: x, wbuf, offsets, n_offsets, wmma,
-# mma_offsets, n_mma, scratch, out, n, h, w, stream.
+# lpr_lpsr_bf16 / lpr_lpsr_f32: x, wbuf, offsets, n_offsets, wmma (the
+# instance's B tiles: bf16 or TF32), mma_offsets, n_mma, scratch, out, n,
+# h, w, stream.
 LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 2
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
                    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
@@ -349,7 +391,8 @@ def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
     A CUDA tensor launches the K2 kernel on the current stream (bfloat16
     or float32 activations, contiguous, H % 4 == 0, W % 4 == 0; bfloat16
     only with a pack whose ``bf16_exact`` holds, since its wide stages run
-    on the bf16 tiles; anything else raises) and adds one to
+    on the bf16 tiles, float32 only with a float32 model's pack, whose TF32
+    tiles its wide stages read; anything else raises) and adds one to
     ``lpsr_fused.launches``; a CPU tensor takes :func:`lpsr_plain`."""
     if x.device.type == "cpu":
         return lpsr_plain(x, packed)
@@ -366,19 +409,21 @@ def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
                          f"got {(h, w)}")
     if not x.is_contiguous():
         raise ValueError("lpsr_fused takes a contiguous NHWC tensor")
-    buf, mma = packed.buf, packed.mma
+    buf = packed.buf
     if (buf.device != x.device or buf.dtype != torch.float32
             or not buf.is_contiguous() or buf.data_ptr() % 16):
         raise ValueError(f"packed weights must be a contiguous, 16-byte "
                          f"aligned float32 buffer on {x.device}")
-    if (mma.device != x.device or mma.dtype != torch.bfloat16
-            or not mma.is_contiguous() or mma.data_ptr() % 16):
-        raise ValueError(f"packed B tiles must be a contiguous, 16-byte "
-                         f"aligned bfloat16 buffer on {x.device}")
     if x.dtype == torch.bfloat16 and not packed.bf16_exact:
         raise ValueError("the bf16 kernel runs its wide stages on bf16 "
                          "weights, and this pack's are not exact in bf16: "
                          "pack a bf16 model (model.to(torch.bfloat16))")
+    tiles, tile_offsets = packed.tiles(x.dtype)
+    want = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    if (tiles.device != x.device or tiles.dtype != want
+            or not tiles.is_contiguous() or tiles.data_ptr() % 16):
+        raise ValueError(f"packed B tiles must be a contiguous, 16-byte "
+                         f"aligned {want} buffer on {x.device}")
     lib = _lib()
     per_image = lib.lpr_lpsr_scratch_elems(h, w)
     if per_image <= 0:
@@ -386,12 +431,12 @@ def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
     scratch = torch.empty(n * per_image, dtype=x.dtype, device=x.device)
     out = torch.empty((n, h, w, 1), dtype=torch.float32, device=x.device)
     offs = (ctypes.c_int * len(packed.offsets))(*packed.offsets)
-    moffs = (ctypes.c_int * len(packed.mma_offsets))(*packed.mma_offsets)
+    moffs = (ctypes.c_int * len(tile_offsets))(*tile_offsets)
     fn = lib.lpr_lpsr_bf16 if x.dtype == torch.bfloat16 else lib.lpr_lpsr_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), buf.data_ptr(), offs, len(offs),
-                 mma.data_ptr(), moffs, len(moffs), scratch.data_ptr(),
+                 tiles.data_ptr(), moffs, len(moffs), scratch.data_ptr(),
                  out.data_ptr(), n, h, w, stream)
     if err != 0:
         raise RuntimeError(f"lpsr kernel launch failed: cudaError {err}")

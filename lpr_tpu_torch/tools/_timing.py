@@ -24,6 +24,7 @@ import torch
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
 # The host link of an H100 SXM: PCIe 5.0 x16, 64 GB/s each way (the data
 # sheet's 128 GB/s counts both directions).

@@ -174,6 +174,114 @@ def test_lpsr_pack_b_tiles_hold_the_weights():
         assert torch.equal(got, w), key
 
 
+def _tf32_bits_low(t):
+    """The 13 low mantissa bits of float32 t, as int32."""
+    return t.contiguous().view(torch.int32) & 0x1FFF
+
+
+def test_tf32_round_rounds_to_nearest_ties_away():
+    """tf32_round keeps 10 mantissa bits, rounds to nearest with ties away
+    from zero (cvt.rna.tf32.f32) and zeroes the 13 low bits; against a
+    numpy rounding of the same bits in float64 on random values."""
+    one = 1.0
+    x = torch.tensor([one + 2 ** -11, -(one + 2 ** -11), one + 3 * 2 ** -11,
+                      one + 2 ** -11 - 2 ** -23, 3.0, 0.0, -0.0],
+                     dtype=torch.float32)
+    got = kl.tf32_round(x)
+    want = [one + 2 ** -10, -(one + 2 ** -10), one + 2 ** -9, one, 3.0, 0.0,
+            -0.0]
+    assert got.tolist() == want
+    rng = np.random.RandomState(0)
+    v = (rng.randn(10000) * 10.0 ** rng.randint(-6, 6, 10000)
+         ).astype(np.float32)
+    r = kl.tf32_round(torch.from_numpy(v)).numpy().astype(np.float64)
+    assert not _tf32_bits_low(torch.from_numpy(r.astype(np.float32))).any()
+    # the nearest TF32 value: |v - r| <= half a TF32 ulp of |v|'s binade
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(v.astype(np.float64)))) - 10)
+    assert (np.abs(v - r) <= ulp / 2).all()
+
+
+def test_lpsr_pack_tf32_split_reproduces_the_wide_weights():
+    """A float32 pack's TF32 tiles: each wide weight (the folded lff too)
+    as big = tf32(w) and small = tf32(w - big), both with their 13 low
+    mantissa bits zero, big + small within 2^-21 of w relative; only a
+    float32 model's pack has them, and a float32 launch needs them."""
+    packed = kl.lpsr_pack(tlpsr.load_lpsr(LPSR, device="cpu"))
+    assert packed.tf32.dtype == torch.float32
+    assert len(packed.tf32_offsets) == len(kl.MMA_KEYS) == 18
+    assert all(o % 8 == 0 for o in packed.tf32_offsets)
+    assert packed.tiles(torch.float32)[0] is packed.tf32
+    for key in kl.MMA_KEYS:
+        w = packed[f"{key}.w"]
+        big = kl.tf32_round(w)
+        small = kl.tf32_round(w - big)
+        assert not _tf32_bits_low(big).any() and not _tf32_bits_low(small).any()
+        rel = ((big.double() + small.double() - w.double()).abs()
+               / w.double().abs().clamp_min(1e-30))
+        assert rel.max() <= 2.0 ** -21, key
+        assert (small != 0).any(), key          # the weights need both parts
+    bf = kl.lpsr_pack(tlpsr.load_lpsr(LPSR, device="cpu").to(torch.bfloat16))
+    assert bf.tf32 is None and bf.tiles(torch.bfloat16)[0] is bf.mma
+    with pytest.raises(ValueError):
+        bf.tiles(torch.float32)
+
+
+def test_lpsr_pack_tf32_tiles_hold_the_weights():
+    """The TF32 tiles, unswizzled, give back each wide stage's big and
+    small weights: per 8-channel chunk, per part (big, small), per tap, per
+    output channel, its 8 input channels with the 16-byte halves swapped
+    where bit 2 of the output channel is set."""
+    packed = kl.lpsr_pack(tlpsr.load_lpsr(LPSR, device="cpu"))
+    ends = list(packed.tf32_offsets[1:]) + [packed.tf32.numel()]
+    for key, start, end in zip(kl.MMA_KEYS, packed.tf32_offsets, ends):
+        v = packed[f"{key}.w"]
+        big = kl.tf32_round(v)
+        w = torch.stack([p.reshape(-1, *p.shape[-2:])
+                         for p in (big, kl.tf32_round(v - big))])
+        n_parts, taps, cin, cout = w.shape
+        t = packed.tf32[start:end].view(cin // 8, n_parts, taps, cout, 2, 4)
+        swap = ((torch.arange(cout) >> 2) & 1).bool()
+        t = torch.where(swap[:, None, None], t.flip(4), t)
+        got = t.permute(1, 2, 0, 4, 5, 3).reshape(n_parts, taps, cin, cout)
+        assert torch.equal(got, w), key
+
+
+def test_tf32x3_lpsr_matches_lpsr_apply(jax_params, monkeypatch):
+    """The float32 kernel's arithmetic on the CPU: lpsr_plain with each of
+    the 23 wide stages computed as the three split products (conv2d of
+    a_small * b_big + a_big * b_small + a_big * b_big in float32, a_* the
+    TF32 split of the stored input, b_* of the weight), real weights, two
+    crops, against lpsr_apply (JAX at 'highest') within the float32 TOL_*
+    (1e-4 max, 1e-5 mean): the design keeps the bound."""
+    params = jax_params["real"]
+    _, packed = _port(params)
+    wide = {packed[f"{k}.w"].data_ptr() for k in kl.MMA_KEYS}
+    assert len(wide) == 23 - 5              # the CSAR's 5 run twice
+    plain_conv, calls = kl._conv, []
+
+    def split_conv(z, w, b=None, groups=1):
+        if w.data_ptr() not in wide:
+            return plain_conv(z, w, b, groups)
+        calls.append(w.data_ptr())
+        z = z.float()
+        a_big = kl.tf32_round(z)
+        a_small = kl.tf32_round(z - a_big)
+        w_big = kl.tf32_round(w)
+        w_small = kl.tf32_round(w - w_big)
+        return (plain_conv(a_small, w_big) + plain_conv(a_big, w_small)
+                + plain_conv(a_big, w_big, b))
+
+    monkeypatch.setattr(kl, "_conv", split_conv)
+    x = _crops(2, 2)
+    got = kl.lpsr_plain(torch.from_numpy(x), packed).numpy()
+    assert len(calls) == 23
+    ref = np.asarray(jax.jit(lambda p, v: lpsr_apply(p, v, CFG))(
+        params, jnp.asarray(x)))
+    err = np.abs(got - ref)
+    assert err.max() < kl.TOL_MAX[torch.float32], err.max()
+    assert err.mean() < kl.TOL_MEAN[torch.float32], err.mean()
+
+
 def test_lpsr_stage_work_sums_to_lpsr_work():
     """35 stages in the stage tool's order; twice their multiply-adds are
     lpsr_work's operations; the 23 tensor-core stages hold >= 94 % of the
@@ -204,6 +312,10 @@ def test_stage_tool_finds_its_anchors_in_the_kernel_source():
     lines = lpsr_stages.report([1.0] * 35, 24, 32, 192)
     assert len(lines) == 35
     assert sum(line.endswith(" mma") for line in lines) == 23
+    lines = lpsr_stages.report([1.0] * 35, 64, 32, 192, "float32")
+    assert len(lines) == 35
+    assert sum(line.endswith(" tf32x3") for line in lines) == 23
+    assert sum(line.endswith(" scalar") for line in lines) == 12
     with pytest.raises(ValueError):
         lpsr_stages.stamped_source(text.replace("stage_barrier() {", "x"))
 
