@@ -17,10 +17,10 @@ Phases, each printing one line with its elapsed seconds:
    instances but the dma one (the bf16 stages and the uint8 FULL instance)
    and in K3's mid_kernel (fails if lpsr_kernel<bf16>, lpsr_kernel<float>,
    front_kernel<FULL, bf16>, front_kernel<FULL, uint8_t> or mid_kernel has
-   none), the IMMA (int8 mma) instructions in
-   each instance of I2's conv_int8_kernel (fails if one has none), and
-   nvcc's registers and spills for the uint8 instance, mid_kernel, I1 and
-   I2.  Then the host libraries with g++
+   none), the IGMMA (the warpgroup MMA on int8, wgmma) instructions in
+   each of the 50 instances of I2's conv_int8_kernel (fails if one has
+   none), and nvcc's registers and spills for the uint8 instance,
+   mid_kernel and each kernel of I1 and I2.  Then the host libraries with g++
    (csrc/host_letterbox.cc always; csrc/host_decode.cc, which links
    libjpeg and libpng, where g++ finds their headers, else one line says
    that the decode calls are not driven and why), each g++ command
@@ -54,13 +54,21 @@ Phases, each printing one line with its elapsed seconds:
    dma).
 5. int8    — the int8 plate detector as int8_detector builds it
    (plate_det640.npz quantized from float32, then bf16; K1 for layers
-   0-2) on the slice's 8 letterboxed frames: every quantized conv's input
-   kept once per distinct (weight shape, input shape, stride, padding);
-   at each, I1 (quantize) and I2 (int8 conv) against their plain versions
-   on the same input: codes, sx, the int32 sums and the output equal bit
-   for bit; each timed (plain, kernel, kernel, plain) beside its bound,
-   torch._int_mm on the im2col of the codes and cuDNN's bf16 conv of the
-   same shape; the sums over the step's convs go into the kernels line.
+   0-2) on the slice's 8 letterboxed frames: one forward records every
+   int8 conv's input, residual and plan and every I1 call (it must be one
+   max pass, 43 quantizes and 50 convs, and every carried max equal to the
+   plain max|x| of the quantized input); at each of the 20 distinct
+   (weight, input) shapes, on the real input, I1's max pass and its
+   quantize from 1-4 slots, I2's int32 sums and all 24 of its epilogue
+   instances (bf16 and float32 x act none/silu/leaky x residual x max)
+   equal to the plain versions bit for bit; each conv as the step runs it
+   and each I1 call timed (plain, kernel, kernel, plain; each run a CUDA
+   graph of 10 calls, so device time) beside its bound, the library's one
+   call for the same function where there is one (the max pass:
+   torch.linalg.vector_norm(x, inf); I2: torch._int_mm on the im2col of
+   the codes; the quantize has none), and cuDNN's bf16 conv of the same
+   shape; the sums over the step, and each kernel's largest gap to its
+   plain version over the checks, go into the kernels line.
 6. slice   — PlateRecognizer at the production configuration (720p frames,
    detector at 736x1280, bf16, the repo's checkpoints, the step frozen
    into a CUDA graph as freeze_params does by default) on 8 frames made
@@ -72,9 +80,10 @@ Phases, each printing one line with its elapsed seconds:
    the frozen and of the eager step.  Then the same with
    PipelineConfig(packed_input=True) (the host letterbox, K1's uint8
    instance), with PipelineConfig(fused_mid=True) (K1 + K3), with
-   PipelineConfig(int8_detector=True) (K1, I1, I2, K2; its plates and
-   strings beside the bf16 step's, boxes of frames whose plates are valid
-   in both within 6 px) and with PipelineConfig(lazy_decode=False) (boxes
+   PipelineConfig(int8_detector=True) (K1, I1, I2, K2; a step must
+   launch I1's max pass once, its quantize 43 times and I2 50 times; its
+   plates and strings beside the bf16 step's, boxes of frames whose
+   plates are valid in both within 6 px) and with PipelineConfig(lazy_decode=False) (boxes
    and scores within 1e-3 of the lazy step's).
 7. stages  — the default slice's step split by stage
    (lpr_tpu_torch.tools.profile_stages, one short round): host ms,
@@ -120,7 +129,7 @@ Phases, each printing one line with its elapsed seconds:
    p50/p99, mean batch, the card).
 11. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
    with BENCH_PACKED=1 and =0, and BENCH_PACKED=1 with BENCH_INT8=1 (which
-   must launch I1 and I2): its JSON lines (frames/s, flops_per_frame,
+   must launch I1's two kernels and I2): its JSON lines (frames/s, flops_per_frame,
    mfu_pct against the bf16 peak, the card).
 
 Each path is driven with every launch count set to 0 just before it and
@@ -128,8 +137,9 @@ read just after; a graph replay adds to each count the launches the
 graph holds.  The second-to-last line is one JSON object {"kernels":
 [...]} (launch counts of K1's bf16 instance and K2 from the serve phase's
 16 requests, the main path a user drives, of K1's uint8 instance from the
-packed_input slice, of K3 from the fused_mid slice, of I1 and I2 from the
-int8_detector slice, of each K4 variant from the probe phase, of K2's
+packed_input slice, of K3 from the fused_mid slice, of I1's max pass
+(act_amax) and quantize (quantize_act) and of I2 from the int8_detector
+slice, of each K4 variant from the probe phase, of K2's
 float32 instance, lpsr_f32, from the evaluator in phase apps); the last
 line is {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero before that line.  A watchdog turns a hang into
@@ -195,6 +205,9 @@ RUN_FRAMES = 12
 # of a folder; the raw strings may not differ at all.
 SR_DIFF_MAX = 1
 SERVE_TIMEOUT_S = 240
+# I2's instances: (bf16, float32 out x 3 acts x residual x max, + the raw
+# sums) x N tiles 64 and 128.
+I2_INSTANCES = 50
 
 
 def _wall(fn) -> float:
@@ -552,8 +565,9 @@ def main() -> int:
     t = time.perf_counter()
     libs = _build.build()
     for name, lib in libs.items():
-        for line in lib.ptxas_log:
-            print(f"nvcc[{name}]: {line}", flush=True)
+        if name != "conv_int8":    # its 54 kernels: one line each below
+            for line in lib.ptxas_log:
+                print(f"nvcc[{name}]: {line}", flush=True)
     if sorted(libs) != ["conv_int8", "lpsr", "yolo_front", "yolo_mid"]:
         raise AssertionError(f"built {sorted(libs)}")
     smem = {n: getattr(libs[n].cdll, f"lpr_{n}_smem_bytes")() for n in libs}
@@ -605,19 +619,34 @@ def main() -> int:
           flush=True)
     if k3_hmma < 1:
         raise AssertionError("no HMMA in mid_kernel")
-    # I2's instances conv_int8_kernel<bf16 | float | int>: the tensor
-    # cores' int8 mma (IMMA); and nvcc's registers and spills for I1, I2.
-    i2_imma = {fn.split("conv_int8_kernel", 1)[1][:18]: c for fn, c in
-               _build.sass_counts(libs["conv_int8"].path, "IMMA").items()
-               if "conv_int8_kernel" in fn}
+    # I2's instances conv_int8_kernel<T, BN, ACT, RES, AMAX>: the
+    # warpgroup MMA (IGMMA: wgmma.mma_async on s8, as cuobjdump -sass
+    # names it) in every one; nvcc's registers and spills for each of I1's
+    # and I2's kernels.
+    i2_igmma = {fn: c for fn, c in
+                _build.sass_counts(libs["conv_int8"].path, "IGMMA").items()
+                if "conv_int8_kernel" in fn}
     log = libs["conv_int8"].ptxas_log
-    i_nvcc = [ln for ln in log if "Used" in ln or "spill" in ln]
-    print(f"I2 conv_int8_kernel IMMA instructions by instance: {i2_imma}; "
-          f"I1/I2 nvcc {'; '.join(i_nvcc) or 'not reported (library already built)'}",
+    for i, ln in enumerate(log):
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln
+            tag = fn.split("conv_int8_kernel", 1)[-1][:28] if (
+                "conv_int8_kernel" in fn) else fn.split("_GLOBAL__N_", 1)[-1][-40:]
+            info = "; ".join(x.split(":", 1)[-1].strip() for x in
+                             log[i + 1:i + 4] if "Used" in x or "spill" in x)
+            print(f"nvcc[conv_int8] {tag}: {info}", flush=True)
+    for ln in log:
+        if "wgmma" in ln:
+            print(f"nvcc[conv_int8]: {ln}", flush=True)
+    print(f"I2 conv_int8_kernel: {len(i2_igmma)} instances, IGMMA "
+          f"instructions per instance {min(i2_igmma.values(), default=0)}-"
+          f"{max(i2_igmma.values(), default=0)}; I1/I2 nvcc "
+          f"{'reported above' if log else 'not reported (library already built)'}",
           flush=True)
-    if not i2_imma or min(i2_imma.values()) < 1:
-        raise AssertionError(f"no IMMA in an instance of conv_int8_kernel: "
-                             f"{i2_imma}")
+    if len(i2_igmma) != I2_INSTANCES or min(i2_igmma.values()) < 1:
+        raise AssertionError(f"an instance of conv_int8_kernel without "
+                             f"IGMMA, or not {I2_INSTANCES} instances: "
+                             f"{i2_igmma}")
     # The host libraries (g++): the letterbox of the packed input always;
     # the image decode only where g++ finds libjpeg's and libpng's headers
     # (without them it cannot build, and its calls are not driven).
@@ -643,6 +672,7 @@ def main() -> int:
         kl.lpsr_fused.launches = 0
         km.yolo_mid.launches = 0
         kf.front_stage.launches = dict.fromkeys(kf.STAGES, 0)
+        ki.act_amax.launches = 0
         ki.quantize_act.launches = 0
         ki.conv_int8.launches = 0
 
@@ -651,14 +681,17 @@ def main() -> int:
                 "yolo_front_u8": kf.yolo_front.launches_u8,
                 "lpsr": kl.lpsr_fused.launches,
                 "yolo_mid": km.yolo_mid.launches,
+                "act_amax": ki.act_amax.launches,
                 "quantize_act": ki.quantize_act.launches,
                 "conv_int8": ki.conv_int8.launches}
 
-    def timed(kernel, plain, iters):
+    def timed(kernel, plain, iters, graphed=False):
         """(kernel ms, plain ms, runs) over turns plain, kernel, kernel,
-        plain; each the best of its two runs."""
-        runs = [_timing.event_ms(f, iters)
-                for f in (plain, kernel, kernel, plain)]
+        plain; each the best of its two runs.  ``graphed``: each run a CUDA
+        graph of ``iters`` calls (_timing.graph_ms), for kernels shorter
+        than their launch's host cost."""
+        time_of = _timing.graph_ms if graphed else _timing.event_ms
+        runs = [time_of(f, iters) for f in (plain, kernel, kernel, plain)]
         return min(runs[1:3]), min(runs[0], runs[3]), runs
 
     # ---- 3. kernels -----------------------------------------------------
@@ -975,6 +1008,8 @@ def main() -> int:
     phase("probe", t, f"; launches {probe_counts}")
 
     # ---- 5. int8 --------------------------------------------------------
+    import collections
+
     import torch.nn.functional as F
 
     from lpr_tpu_torch.models.yolo import quantize_yolo, quantized_convs
@@ -985,9 +1020,12 @@ def main() -> int:
     t = time.perf_counter()
     # The int8 detector as int8_detector builds it: quantized from the
     # float32 weights, then cast to bf16; K1 runs layers 0-2 from the float
-    # weights.  Its real activations: every quantized conv's input on the
-    # letterboxed frames of the slice, kept once per distinct (weight
-    # shape, input shape, stride, padding), with how often the step runs it.
+    # weights.  One forward on the slice's letterboxed frames records, at
+    # every int8 conv, its real input, residual and plan (kept once per
+    # distinct (weight shape, input shape, stride, padding, residual, max)
+    # with how often the step runs it), and every I1 call the step makes;
+    # each quantize that reads carried slots must find max(slots) equal to
+    # the plain max|x| of its input, bit for bit.
     plate8 = quantize_yolo(load_plate_detector(CKPT_PLATE)).to(torch.bfloat16)
     front8 = kf.front_pack(plate8)
     frames = synth_frames(BATCH, FRAME_HW, SEED)
@@ -995,67 +1033,179 @@ def main() -> int:
         lb8 = letterbox(torch.as_tensor(frames, device="cuda").to(
             torch.bfloat16) / 255.0, DET_HW, fill=0.0)[0].contiguous()
     seen = {}
+    i1_calls = collections.Counter()     # ("max" | n slots, shape) -> calls
+    carried = []
 
-    def keep_input(conv, args):
+    def keep_input(conv, args, kwargs):
+        x = getattr(args[0], "x", args[0])
+        res = kwargs.get("residual")
         c = conv.conv
-        key = (tuple(conv.w_q.shape), tuple(args[0].shape), c.stride,
-               _resolve_padding(c.padding, *conv.w_q.shape[:2]))
+        key = (tuple(conv.w_q.shape), tuple(x.shape), c.stride,
+               _resolve_padding(c.padding, *conv.w_q.shape[:2]),
+               res is not None, conv.out_slot is not None)
         if key not in seen:
-            seen[key] = [args[0].clone(), 0, conv]
-        seen[key][1] += 1
+            seen[key] = [x.clone(), None if res is None else res.clone(), 0,
+                         conv]
+        seen[key][2] += 1
 
-    hooks = [m.register_forward_pre_hook(keep_input)
+    real_quantize, real_amax = ki.quantize_act, ki.act_amax
+
+    def quantize_rec(x, slots=None):
+        out = real_quantize(x, slots)
+        i1_calls[(len(slots or [None]), tuple(x.shape))] += 1
+        if slots is not None:
+            carried.append(torch.equal(torch.cat(slots).amax(),
+                                       ki.act_amax_plain(x)))
+        return out
+
+    def amax_rec(x, slot):
+        i1_calls[("max", tuple(x.shape))] += 1
+        return real_amax(x, slot)
+
+    # the wrappers count their launches on their module-level names, which
+    # the recorders stand in for during this forward
+    quantize_rec.launches = amax_rec.launches = 0
+
+    hooks = [m.register_forward_pre_hook(keep_input, with_kwargs=True)
              for m in quantized_convs(plate8).values()]
-    with torch.inference_mode():
-        plate8(lb8, front=front8)
-    torch.cuda.synchronize()
-    for h in hooks:
-        h.remove()
-    n_run = sum(v[1] for v in seen.values())
+    ki.quantize_act, ki.act_amax = quantize_rec, amax_rec
+    try:
+        with torch.inference_mode():
+            plate8(lb8, front=front8)
+        torch.cuda.synchronize()
+    finally:
+        ki.quantize_act, ki.act_amax = real_quantize, real_amax
+        for h in hooks:
+            h.remove()
+    n_run = sum(v[2] for v in seen.values())
+    n_max = sum(n for k, n in i1_calls.items() if k[0] == "max")
+    n_quant = sum(n for k, n in i1_calls.items() if k[0] != "max")
+    shapes = {k[:4] for k in seen}
     print(f"int8 detector at ({BATCH}, {DET_HW[0]}, {DET_HW[1]}): "
           f"{len(quantized_convs(plate8))} quantized convs, {n_run} run "
-          f"after K1, {len(seen)} distinct (weight, input) shapes",
-          flush=True)
-    tot = dict.fromkeys(("i1", "i1_plain", "i1_bound", "i2", "i2_plain",
-                         "i2_bound", "int_mm", "cudnn"), 0.0)
-    i2_err = 0.0
-    int_mm_ok = True
-    i2_ops_time = 0.0
-    for (w_shape, x_shape, stride, pad), (x, n, conv) in seen.items():
-        kh, kw_, cin, cout = w_shape
+          f"after K1 at {len(shapes)} distinct (weight, input) shapes "
+          f"({len(seen)} with the residual and max flags); I1 a step: "
+          f"{n_max} max pass(es), {n_quant} quantizes; the carried max "
+          f"equal to the plain max at {sum(carried)} of {len(carried)} "
+          f"quantizes that read slots", flush=True)
+    if not all(carried) or (n_max, n_quant, n_run) != (1, 43, 50):
+        raise AssertionError(f"the int8 detector's plan: {n_max} max "
+                             f"passes, {n_quant} quantizes, {n_run} convs, "
+                             f"carried max equal {carried}")
+    # Every instance at every shape, bit for bit against the plain
+    # versions on the same real input: I1's max pass, its quantize from
+    # 1-4 slots (channel slices), I2's sums and its 24 epilogue instances
+    # (bf16 and float32 x act x residual x max; the residual the step's
+    # own where it has one, else a random tensor of the output's shape).
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    checked = 0
+    # the largest |kernel - plain| of each kernel over these checks (0 when
+    # the checks above hold; printed on the kernels line)
+    err = dict.fromkeys(("amax", "i1", "i2"), 0.0)
+
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max())
+    for w_shape, x_shape, stride, pad in sorted(shapes):
+        x, res, _, conv = next(v for k, v in seen.items()
+                               if k[:4] == (w_shape, x_shape, stride, pad))
         ws = conv.w_s_bits.view(torch.float32)
         b = None if conv.b_bits is None else conv.b_bits.view(torch.float32)
         kw = dict(stride=(stride, stride), padding=pad)
         with torch.inference_mode():
-            xq, sx = ki.quantize_act(x)
             pxq, psx = ki.quantize_act_plain(x)
-            acc = ki.conv_int8(xq, sx, conv.w_q, ws, b, packed=conv.w_frag,
+            for n in (1, 2, 3, 4):
+                parts = [p.contiguous() for p in torch.tensor_split(
+                    x, n, dim=-1)]
+                slots = torch.zeros(n, device="cuda")
+                for i, p in enumerate(parts):
+                    ki.act_amax(p, slots[i:i + 1])
+                xq, sx = ki.quantize_act(x, [slots[i:i + 1]
+                                             for i in range(n)])
+                torch.cuda.synchronize()
+                err["i1"] = max(err["i1"], gap(xq, pxq), gap(sx, psx))
+                err["amax"] = max([err["amax"]] + [
+                    gap(slots[i], ki.act_amax_plain(p))
+                    for i, p in enumerate(parts)])
+                if not (torch.equal(xq, pxq) and torch.equal(sx, psx)
+                        and all(torch.equal(slots[i], ki.act_amax_plain(p))
+                                for i, p in enumerate(parts))):
+                    raise AssertionError(f"I1 with {n} slots differs from "
+                                         f"its plain version at {x_shape}")
+            acc = ki.conv_int8(xq, sx, conv.w_q, ws, b, packed=conv.w_pack,
                                raw=True, **kw)
-            y = ki.conv_int8(xq, sx, conv.w_q, ws, b, packed=conv.w_frag,
-                             out_dtype=x.dtype, **kw)
-            pacc = ki.conv_int8_plain(pxq, psx, conv.w_q, ws, b, raw=True,
-                                      **kw)
-            py = ki.conv_int8_plain(pxq, psx, conv.w_q, ws, b,
-                                    out_dtype=x.dtype, **kw)
-        torch.cuda.synchronize()
-        same = {"codes": torch.equal(xq, pxq), "sx": torch.equal(sx, psx),
-                "int32 sums": torch.equal(acc, pacc),
-                "output": torch.equal(y, py)}
-        err = (y.float() - py.float()).abs().max().item()
-        i2_err = max(i2_err, err)
-        if not all(same.values()):
-            raise AssertionError(f"I1/I2 differ from their plain versions at "
-                                 f"{w_shape} on {x_shape}: {same}, {err}")
-        it = 10
+            acc_ref = ki.conv_int8_plain(xq, sx, conv.w_q, ws, b, raw=True,
+                                         **kw)
+            err["i2"] = max(err["i2"], gap(acc, acc_ref))
+            if not torch.equal(acc, acc_ref):
+                raise AssertionError(f"I2's int32 sums differ at {w_shape} "
+                                     f"on {x_shape}")
+            for dt in (torch.bfloat16, torch.float32):
+                r = (res if res is not None else torch.randn(
+                    acc.shape, generator=gen, device="cuda")).to(dt)
+                for act in ki.ACTS:
+                    for rr in (None, r):
+                        ref = ki.conv_int8_plain(xq, sx, conv.w_q, ws, b,
+                                                 out_dtype=dt, act=act,
+                                                 residual=rr, **kw)
+                        for with_max in (False, True):
+                            slot = (torch.zeros(1, device="cuda")
+                                    if with_max else None)
+                            y = ki.conv_int8(xq, sx, conv.w_q, ws, b,
+                                             packed=conv.w_pack, out_dtype=dt,
+                                             act=act, residual=rr, amax=slot,
+                                             **kw)
+                            torch.cuda.synchronize()
+                            err["i2"] = max(err["i2"], gap(y, ref))
+                            if with_max:
+                                err["i2"] = max(err["i2"], gap(
+                                    slot, ki.act_amax_plain(ref)))
+                            ok = torch.equal(y, ref) and (
+                                not with_max or torch.equal(
+                                    slot, ki.act_amax_plain(ref).reshape(1)))
+                            if not ok:
+                                raise AssertionError(
+                                    f"I2 differs from its plain version at "
+                                    f"{w_shape} on {x_shape}: {dt}, {act}, "
+                                    f"residual {rr is not None}, max "
+                                    f"{with_max}")
+                            checked += 1
+    print(f"int8: at the {len(shapes)} shapes, I1's max pass and its "
+          f"quantize from 1-4 slots, I2's int32 sums and its {checked} "
+          f"epilogue launches (bf16 and float32 x none/silu/leaky x "
+          f"residual x max) equal to the plain versions bit for bit",
+          flush=True)
+    # Times: each conv as the step runs it (bf16, its act, its residual,
+    # its max) and each I1 call of the step, in turns with the plain
+    # versions, beside the bounds and the yardsticks, each a CUDA graph of
+    # repeated calls (device time: the kernels are shorter than a launch's
+    # host cost); summed over the step.
+    tot = dict.fromkeys(("amax", "amax_plain", "amax_bound", "amax_lib", "i1",
+                         "i1_plain", "i1_bound", "i2", "i2_plain", "i2_bound",
+                         "int_mm", "cudnn"), 0.0)
+    int_mm_ok = True
+    i2_ops_time = 0.0
+    it = 10
+    for (w_shape, x_shape, stride, pad, has_res, has_max), (
+            x, res, n, conv) in sorted(seen.items(), key=lambda kv: kv[0]):
+        kh, kw_, cin, cout = w_shape
+        ws = conv.w_s_bits.view(torch.float32)
+        b = None if conv.b_bits is None else conv.b_bits.view(torch.float32)
+        kw = dict(stride=(stride, stride), padding=pad)
+        slot = torch.zeros(1, device="cuda") if has_max else None
         with torch.inference_mode():
-            q_ms, q_plain, _ = timed(lambda: ki.quantize_act(x),
-                                     lambda: ki.quantize_act_plain(x), it)
+            xq, sx = ki.quantize_act_plain(x)
+
+            def plain():
+                y = ki.conv_int8_plain(xq, sx, conv.w_q, ws, b,
+                                       out_dtype=x.dtype, act=conv.act,
+                                       residual=res, **kw)
+                return ki.act_amax_plain(y) if has_max else y
+
             c_ms, c_plain, _ = timed(
                 lambda: ki.conv_int8(xq, sx, conv.w_q, ws, b,
-                                     packed=conv.w_frag, out_dtype=x.dtype,
-                                     **kw),
-                lambda: ki.conv_int8_plain(xq, sx, conv.w_q, ws, b,
-                                           out_dtype=x.dtype, **kw), it)
+                                     packed=conv.w_pack, out_dtype=x.dtype,
+                                     act=conv.act, residual=res, amax=slot,
+                                     **kw), plain, it, graphed=True)
             # yardsticks: torch._int_mm over the im2col of the codes (the
             # same int32 sums), and cuDNN's bf16 conv of the same shape
             cols = F.unfold(xq[..., :cin].permute(0, 3, 1, 2).to(
@@ -1065,57 +1215,105 @@ def main() -> int:
             b_mat = conv.w_q.permute(2, 0, 1, 3).reshape(-1, cout).contiguous()
             try:
                 mm = torch._int_mm(a_mat, b_mat)
-                mm_ms = _timing.event_ms(lambda: torch._int_mm(a_mat, b_mat),
+                mm_ms = _timing.graph_ms(lambda: torch._int_mm(a_mat, b_mat),
                                          it)
-                mm_same = torch.equal(mm.reshape(acc.shape), acc)
+                mm_same = torch.equal(mm.reshape(-1), ki.conv_int8_plain(
+                    xq, sx, conv.w_q, ws, b, raw=True, **kw).reshape(-1))
             except RuntimeError as e:
                 mm_ms, mm_same, int_mm_ok = None, f"refused ({e})", False
             xc = x.permute(0, 3, 1, 2)
-            dnn_ms = _timing.event_ms(lambda: F.conv2d(
+            dnn_ms = _timing.graph_ms(lambda: F.conv2d(
                 xc, conv.conv.w, conv.conv.b, stride=stride, padding=pad), it)
-        q_bound, _ = _timing.bound_ms(ki.quantize_work(x_shape, 2),
-                                      peak=ki.PEAK_FP32_FLOPS)
-        work = ki.conv_int8_work(x_shape, w_shape, (stride, stride), pad)
+        work = ki.conv_int8_work(x_shape, w_shape, (stride, stride), pad,
+                                 residual=has_res, amax=has_max)
+        ho, wo = ki._out_hw(*x_shape[1:3], kh, kw_, (stride, stride), pad)
+        tile = ki.tile_shape(ho, wo, stride)
+        tiles = x_shape[0] * -(-wo // tile[0]) * -(-ho // tile[1])
         c_bound, c_by = _timing.bound_ms(work, peak=ki.PEAK_INT8_OPS)
-        print(f"int8 {w_shape} on {x_shape} s{stride} p{pad} x{n} on {card}: "
-              f"codes, sx, int32 sums and output equal to the plain versions "
-              f"bit for bit; I1 {q_ms:.4f} ms (plain {q_plain:.4f}, bound "
-              f"{q_bound:.4f} bytes), I2 {c_ms:.4f} ms (plain {c_plain:.4f}, "
-              f"bound {c_bound:.4f} {c_by}, {work[0]} int8 ops), "
+        print(f"int8 I2 {w_shape} on {x_shape} s{stride} p{pad} act "
+              f"{conv.act} residual {has_res} max {has_max} x{n} on {card}: "
+              f"{c_ms:.4f} ms (plain {c_plain:.4f}, bound {c_bound:.4f} "
+              f"{c_by}, {work[0]} int8 ops, {work[1]} B, tile "
+              f"{tile} x {ki.n_tile(tiles, cout)}), "
               f"torch._int_mm on im2col {mm_ms} ms (sums equal: {mm_same}), "
               f"cuDNN bf16 conv {dnn_ms:.4f} ms", flush=True)
-        for k, v in (("i1", q_ms), ("i1_plain", q_plain), ("i1_bound", q_bound),
-                     ("i2", c_ms), ("i2_plain", c_plain), ("i2_bound", c_bound),
+        for k, v in (("i2", c_ms), ("i2_plain", c_plain), ("i2_bound", c_bound),
                      ("int_mm", mm_ms or 0.0), ("cudnn", dnn_ms)):
             tot[k] += n * v
         if c_by == "operations":
             i2_ops_time += n * c_bound
-    print(f"int8 detector's {n_run} convs a step at ({BATCH}, {DET_HW[0]}, "
-          f"{DET_HW[1]}) on {card}, summed: I1 {tot['i1']:.4f} ms (plain "
-          f"{tot['i1_plain']:.4f}, bound {tot['i1_bound']:.4f}), I2 "
-          f"{tot['i2']:.4f} ms (plain {tot['i2_plain']:.4f}, bound "
-          f"{tot['i2_bound']:.4f}), torch._int_mm {tot['int_mm']:.4f} ms"
+    xs = {tuple(v[0].shape): v[0] for v in seen.values()}
+    for (kind_, shape), n in sorted(i1_calls.items(), key=str):
+        x = xs[shape]
+        with torch.inference_mode():
+            if kind_ == "max":
+                slot = torch.zeros(1, device="cuda")
+                k_ms, p_ms, _ = timed(lambda: ki.act_amax(x, slot),
+                                      lambda: ki.act_amax_plain(x), it,
+                                      graphed=True)
+                bound, _ = _timing.bound_ms(ki.amax_work(shape, 2),
+                                            peak=ki.PEAK_FP32_FLOPS)
+                # the library's one call for max|x| over the whole tensor
+                # (exact in bf16, as a max is)
+                lib = torch.linalg.vector_norm(x, float("inf"))
+                lib_same = torch.equal(lib.float(), ki.act_amax_plain(x))
+                lib_ms = _timing.graph_ms(
+                    lambda: torch.linalg.vector_norm(x, float("inf")), it)
+                tot["amax_lib"] += n * lib_ms
+                keys = ("amax", "amax_plain", "amax_bound")
+            else:
+                slots = torch.full((kind_,), 1.0, device="cuda")
+                sl = [slots[i:i + 1] for i in range(kind_)]
+                k_ms, p_ms, _ = timed(
+                    lambda: ki.quantize_act(x, sl),
+                    lambda: ki.quantize_act_plain(x, slots.amax()), it,
+                    graphed=True)
+                bound, _ = _timing.bound_ms(ki.quantize_work(shape, 2, kind_),
+                                            peak=ki.PEAK_FP32_FLOPS)
+                keys = ("i1", "i1_plain", "i1_bound")
+        what = ("max pass" if kind_ == "max"
+                else f"quantize from {kind_} slot(s)")
+        lib_txt = ("" if kind_ != "max" else
+                   f", torch.linalg.vector_norm(x, inf) {lib_ms:.4f} ms "
+                   f"(equal to the plain max: {lib_same})")
+        print(f"int8 I1 {what} on {shape} x{n} on {card}: {k_ms:.4f} ms "
+              f"(plain {p_ms:.4f}, bound {bound:.4f} bytes{lib_txt})",
+              flush=True)
+        for k, v in zip(keys, (k_ms, p_ms, bound)):
+            tot[k] += n * v
+    print(f"int8 detector's step at ({BATCH}, {DET_HW[0]}, {DET_HW[1]}) on "
+          f"{card}, summed, each alone in a CUDA graph: I1 max pass "
+          f"{tot['amax']:.4f} ms (plain {tot['amax_plain']:.4f}, bound "
+          f"{tot['amax_bound']:.4f}, vector_norm {tot['amax_lib']:.4f}), I1 "
+          f"quantize {tot['i1']:.4f} ms (plain {tot['i1_plain']:.4f}, bound "
+          f"{tot['i1_bound']:.4f}), I2 {tot['i2']:.4f} ms (plain "
+          f"{tot['i2_plain']:.4f}, bound {tot['i2_bound']:.4f}), "
+          f"torch._int_mm {tot['int_mm']:.4f} ms"
           f"{'' if int_mm_ok else ' (refused at some shapes)'}, cuDNN bf16 "
           f"{tot['cudnn']:.4f} ms", flush=True)
-    kernels.append({
-        "name": "quantize_act", "route": "cuda",
-        "source": "lpr_tpu_torch/csrc/conv_int8.cu",
-        "replaces": "lpr_tpu/ops/nn.py:129", "launches": None,
-        "max_abs_err": 0.0, "ms": tot["i1"], "plain_ms": tot["i1_plain"],
-        "bound_ms": tot["i1_bound"], "bound_by": "bytes", "library_ms": None,
-    })
+    # the quantize has no one PyTorch call (its scale comes from the slots)
+    for name, key, lib in (("act_amax", "amax", tot["amax_lib"]),
+                           ("quantize_act", "i1", None)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "lpr_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "lpr_tpu/ops/nn.py:129", "launches": None,
+            "max_abs_err": err[key], "ms": tot[key],
+            "plain_ms": tot[key + "_plain"], "bound_ms": tot[key + "_bound"],
+            "bound_by": "bytes", "library_ms": lib,
+        })
     kernels.append({
         "name": "conv_int8", "route": "cuda",
         "source": "lpr_tpu_torch/csrc/conv_int8.cu",
         "replaces": "lpr_tpu/ops/nn.py:129", "launches": None,
-        "max_abs_err": i2_err, "ms": tot["i2"], "plain_ms": tot["i2_plain"],
+        "max_abs_err": err["i2"], "ms": tot["i2"], "plain_ms": tot["i2_plain"],
         "bound_ms": tot["i2_bound"],
         "bound_by": ("operations" if i2_ops_time >= tot["i2_bound"] / 2
                      else "bytes"),
         "library_ms": tot["int_mm"] if int_mm_ok else None,
     })
-    phase("int8", t, f"; {n_run} int8 convs a step, I1/I2 bit for bit at "
-          f"every shape")
+    phase("int8", t, f"; {n_run} int8 convs, {n_quant} quantizes and {n_max} "
+          f"max pass a step, I1/I2 bit for bit at every shape")
 
     # ---- 6. slice -------------------------------------------------------
     from lpr_tpu_torch.pipeline.recognizer import (PipelineConfig,
@@ -1255,9 +1453,17 @@ def main() -> int:
     # whose plates are valid in both held to the JAX test's 6 px
     # (tests/test_pipeline.py:238-262), the rest reported.
     _, results_int8, int8_counts, out_int8 = drive(
-        "int8_detector", None, ("yolo_front", "quantize_act", "conv_int8",
-                                "lpsr"),
+        "int8_detector", None, ("yolo_front", "act_amax", "quantize_act",
+                                "conv_int8", "lpsr"),
         plate_model=load_plate_detector(CKPT_PLATE), int8_detector=True)
+    i_counts = tuple(int8_counts[k] for k in ("act_amax", "quantize_act",
+                                              "conv_int8"))
+    print(f"slice int8_detector: a step launches I1's max pass "
+          f"{i_counts[0]} time(s), its quantize {i_counts[1]} times (one a "
+          f"distinct tensor), I2 {i_counts[2]} times", flush=True)
+    if i_counts != (1, 43, 50):
+        raise AssertionError(f"int8 step launches (max pass, quantize, I2) "
+                             f"{i_counts}, not (1, 43, 50)")
     same_valid = (out_int8["plate_valid"] == out_default["plate_valid"]
                   ).all(axis=1)
     d_box = max((float(np.abs(out_int8["plate_boxes"][i][v]
@@ -1485,7 +1691,7 @@ def main() -> int:
             raise AssertionError(f"lpr_tpu_torch.bench BENCH_PACKED={mode} "
                                  f"BENCH_INT8={int8}")
         bench_counts[(mode, int8)] = counts()
-    if min(bench_counts[("1", "1")][k] for k in ("quantize_act",
+    if min(bench_counts[("1", "1")][k] for k in ("act_amax", "quantize_act",
                                                   "conv_int8")) < 1:
         raise AssertionError(f"BENCH_INT8=1 did not launch I1 and I2: "
                              f"{bench_counts[('1', '1')]}")
@@ -1498,6 +1704,7 @@ def main() -> int:
     by_name["yolo_front_u8"]["launches"] = packed_counts["yolo_front_u8"]
     by_name["lpsr"]["launches"] = serve_counts["lpsr"]
     by_name["yolo_mid"]["launches"] = mid_counts["yolo_mid"]
+    by_name["act_amax"]["launches"] = int8_counts["act_amax"]
     by_name["quantize_act"]["launches"] = int8_counts["quantize_act"]
     by_name["conv_int8"]["launches"] = int8_counts["conv_int8"]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -76,8 +76,9 @@ def step_flops(rec, frames: torch.Tensor, packed) -> int:
 
     def count_int8(conv, args):
         c = conv.conv
+        x = getattr(args[0], "x", args[0])     # a tensor or its QuantizedAct
         int8_ops.append(conv_int8_work(
-            args[0].shape, conv.w_q.shape, (c.stride, c.stride),
+            x.shape, conv.w_q.shape, (c.stride, c.stride),
             _resolve_padding(c.padding, *conv.w_q.shape[:2]))[0])
 
     hooks = ([m.register_forward_pre_hook(count_int8) for m in

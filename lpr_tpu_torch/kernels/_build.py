@@ -103,7 +103,7 @@ def host_command(name: str, out: Path) -> List[str]:
 
 def _ptxas_lines(text: str) -> List[str]:
     return [ln.strip() for ln in text.splitlines()
-            if "ptxas info" in ln or "spill" in ln]
+            if "ptxas info" in ln or "spill" in ln or "wgmma" in ln]
 
 
 def _compile(names: List[str], suffix: str, command, log) -> Dict[str, Library]:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from lpr_tpu_torch.device import DeviceLike, resolve_device
+from lpr_tpu_torch.kernels import conv_int8 as ki
 from lpr_tpu_torch.ops import nn as tnn
 from lpr_tpu_torch.weights.checkpoint import State, load_state
 
@@ -50,8 +51,24 @@ def _folded(state: State, prefix: str):
     return w, b
 
 
-_ACTS = {"silu": tnn.silu, "leaky": lambda y: tnn.leaky_relu(y, 0.1),
-         "none": lambda y: y}
+class AmaxPlan:
+    """The int8 detector's exact per-tensor maxima (:func:`plan_amax`): one
+    float32 slot for each tensor whose max|x| a quantize reads, zeroed by
+    one memset a forward (``buf``, set by :meth:`YoloModel.forward_from`
+    for the length of a forward, None outside it).  An I2 epilogue takes
+    its output's max into its slot (``ConvAct.out_slot``); a conv's
+    quantize reads the slots of the tensors its input is made of
+    (``ConvAct.in_plan``), or, where no slot holds the max, I1's max pass
+    fills one first."""
+
+    def __init__(self):
+        self.n = 0
+        self.start: Optional[int] = None
+        self.buf: Optional[Tensor] = None
+
+    def new(self) -> int:
+        self.n += 1
+        return self.n - 1
 
 
 class ConvAct(torch.nn.Module):
@@ -59,11 +76,15 @@ class ConvAct(torch.nn.Module):
 
     :meth:`quantize` adds the int8 form of the weight (``quantize_yolo``'s
     ``w_q``/``w_s``/``b``); from then on the layer runs
-    :func:`tnn.conv2d_int8` (``lpr_tpu/models/yolo.py:82-96``).  The float
-    weight stays beside it, for the K1 and K3 packs (``int8_detector``
-    quantizes after they are built from the float weights, as the JAX
-    recognizer does).  The float32 scale and bias are held as int32 bit
-    views, so that casting the model to bf16 leaves them as they are."""
+    :func:`tnn.conv2d_int8` (``lpr_tpu/models/yolo.py:82-96``) with its
+    activation, and a Bottleneck's shortcut (``residual``), in the int8
+    kernel's epilogue.  ``forward`` takes a tensor or, for convs that read
+    the same tensor, its :class:`~lpr_tpu_torch.kernels.conv_int8
+    .QuantizedAct` (:meth:`quantize_input`).  The float weight stays beside
+    the int8 one, for the K1 and K3 packs (``int8_detector`` quantizes
+    after they are built from the float weights, as the JAX recognizer
+    does).  The float32 scale and bias are held as int32 bit views, so
+    that casting the model to bf16 leaves them as they are."""
 
     def __init__(self, state: State, prefix: str, *, k: int, stride: int = 1,
                  pad=None, groups: int = 1, act: str = "silu"):
@@ -75,6 +96,11 @@ class ConvAct(torch.nn.Module):
         self.act = act
         self.prefix = prefix
         self.quantized = False
+        # plan_amax's entries: (slots, max pass first) of the input, the
+        # output's slot, the plan
+        self.in_plan: Optional[Tuple[Tuple[int, ...], bool]] = None
+        self.out_slot: Optional[int] = None
+        self.plan: Optional[AmaxPlan] = None
 
     def int8_eligible(self, min_contract: int = 64) -> bool:
         """``quantize_yolo``'s rule on the HWIO weight: Cin/groups > 1 and
@@ -84,17 +110,18 @@ class ConvAct(torch.nn.Module):
 
     def quantize(self) -> None:
         """Quantize the weight the layer holds (float32 as loaded) per
-        output channel (:func:`tnn.quantize_conv_weight`); a second call
+        output channel (:func:`tnn.quantize_conv_weight`) and pack it for
+        I2 (on a card its TMA descriptor is encoded here); a second call
         keeps the first codes."""
-        from lpr_tpu_torch.kernels.conv_int8 import int8_pack
-
         if self.quantized:
             return
         dev = self.conv.w.device
         w = self.conv.w.detach().float().permute(2, 3, 1, 0).cpu().numpy()
         wq, ws = tnn.quantize_conv_weight(w)
         self.register_buffer("w_q", torch.from_numpy(wq).to(dev))
-        self.register_buffer("w_frag", int8_pack(wq).to(dev))
+        self.register_buffer("w_pack", ki.int8_pack(wq).to(dev))
+        if dev.type == "cuda":
+            ki.weight_map(self.w_pack, wq.shape[2])
         self.register_buffer("w_s_bits",
                              torch.from_numpy(ws).view(torch.int32).to(dev))
         b = self.conv.b
@@ -102,18 +129,66 @@ class ConvAct(torch.nn.Module):
             b.detach().float().clone().view(torch.int32)))
         self.quantized = True
 
-    def forward(self, x: Tensor) -> Tensor:
-        if self.quantized:
-            c = self.conv
-            y = tnn.conv2d_int8(
-                x, self.w_q, self.w_s_bits.view(torch.float32),
-                None if self.b_bits is None else
-                self.b_bits.view(torch.float32),
-                stride=c.stride, padding=c.padding, groups=c.groups,
-                packed=self.w_frag)
-        else:
-            y = self.conv(x)
-        return _ACTS[self.act](y)
+    def _slots(self, idx) -> Optional[List[Tensor]]:
+        """The plan's slots ``idx`` of this forward, or None outside a
+        planned forward."""
+        if self.plan is None or self.plan.buf is None:
+            return None
+        return [self.plan.buf[k:k + 1] for k in idx]
+
+    def quantize_input(self, x: Tensor) -> "ki.QuantizedAct":
+        """I1 on this conv's input: its quantize reads the plan's slots
+        (after I1's max pass fills one, where no slot holds the max), or,
+        outside a planned forward, runs its own max pass."""
+        slots = None if self.in_plan is None else self._slots(
+            self.in_plan[0])
+        if slots is not None and self.in_plan[1]:
+            ki.act_amax(x, slots[0])
+        xq, sx = ki.quantize_act(x, slots)
+        return ki.QuantizedAct(x, xq, sx)
+
+    def forward(self, x, residual: Optional[Tensor] = None) -> Tensor:
+        if not self.quantized:
+            if isinstance(x, ki.QuantizedAct):
+                x = x.x
+            y = tnn.act(self.conv(x), self.act)
+            return y if residual is None else residual + y
+        q = x if isinstance(x, ki.QuantizedAct) else self.quantize_input(x)
+        amax = (None if self.out_slot is None
+                else self._slots((self.out_slot,)))
+        c = self.conv
+        return tnn.conv2d_int8(
+            q.x, self.w_q, self.w_s_bits.view(torch.float32),
+            None if self.b_bits is None else self.b_bits.view(torch.float32),
+            stride=c.stride, padding=c.padding, groups=c.groups,
+            packed=self.w_pack, xq=(q.xq, q.sx), act=self.act,
+            residual=residual, amax=None if amax is None else amax[0])
+
+
+def _plan_in(conv: ConvAct, d, plan: AmaxPlan) -> None:
+    """``conv`` reads a tensor whose max|x| is the max of the slots ``d``
+    (None: no slot holds it, so I1's max pass fills a new one)."""
+    if conv.quantized:
+        conv.in_plan = (d, False) if d is not None else ((plan.new(),), True)
+        conv.plan = plan
+
+
+def _plan_out(conv: ConvAct, plan: AmaxPlan):
+    """The slots of ``conv``'s output: its epilogue's own, if it is int8."""
+    if not conv.quantized:
+        return None
+    conv.out_slot = plan.new()
+    conv.plan = plan
+    return (conv.out_slot,)
+
+
+def _plan_union(ds):
+    """The slots of a concat of tensors of slots ``ds`` (at most the 4 a
+    quantize reads; None if a part's max is not known)."""
+    if any(d is None for d in ds):
+        return None
+    slots = tuple(sorted({k for d in ds for k in d}))
+    return slots if len(slots) <= 4 else None
 
 
 class Layer(torch.nn.Module):
@@ -124,6 +199,17 @@ class Layer(torch.nn.Module):
 
     def load(self, state: State, prefix: str) -> None:
         """Build this layer's tensors from the flat state."""
+
+    def plan_amax(self, d, plan: AmaxPlan):
+        """Plan this layer's int8 convs (:func:`plan_amax`) on an input
+        whose max|x| is the max of slots ``d`` (None: not known; for a
+        layer of several inputs, their list); returns its output's slots.
+        By default a layer's convs take I1's max pass, and its output's max
+        is not known."""
+        for m in self.modules():
+            if isinstance(m, ConvAct):
+                _plan_in(m, None, plan)
+        return None
 
 
 class Conv(Layer):
@@ -151,6 +237,12 @@ class Conv(Layer):
         if self._is_s2d_stem():
             x = tnn.pixel_unshuffle(x, 2)
         return self.cv(x)
+
+    def plan_amax(self, d, plan):
+        if self._is_s2d_stem():
+            return super().plan_amax(d, plan)
+        _plan_in(self.cv, d, plan)
+        return _plan_out(self.cv, plan)
 
 
 class DWConv(Conv):
@@ -185,8 +277,14 @@ class Bottleneck(torch.nn.Module):
         self.shortcut = shortcut
 
     def forward(self, x):
-        y = self.cv2(self.cv1(x))
-        return x + y if self.shortcut else y
+        return self.cv2(self.cv1(x), residual=x if self.shortcut else None)
+
+    def plan_amax(self, d, plan):
+        _plan_in(self.cv1, d, plan)
+        _plan_in(self.cv2, _plan_out(self.cv1, plan), plan)
+        y = _plan_out(self.cv2, plan)
+        # an int8 cv2 adds the shortcut in its epilogue, before the max
+        return y if self.cv2.quantized or not self.shortcut else None
 
 
 class C3(Layer):
@@ -210,8 +308,21 @@ class C3(Layer):
             for j in range(self.n)])
 
     def forward(self, x):
+        if self.cv1.quantized and self.cv2.quantized:
+            x = self.cv1.quantize_input(x)     # one quantize for both
         y1 = self.m(self.cv1(x))
         return self.cv3(torch.cat([y1, self.cv2(x)], -1))
+
+    def plan_amax(self, d, plan):
+        if type(self) is not C3:       # C3TR, C3SPP, C3Ghost: other m
+            return super().plan_amax(d, plan)
+        _plan_in(self.cv1, d, plan)
+        _plan_in(self.cv2, d, plan)
+        y = _plan_out(self.cv1, plan)
+        for b in self.m:
+            y = b.plan_amax(y, plan)
+        _plan_in(self.cv3, _plan_union([y, _plan_out(self.cv2, plan)]), plan)
+        return _plan_out(self.cv3, plan)
 
 
 class BottleneckLayer(Layer):
@@ -228,6 +339,9 @@ class BottleneckLayer(Layer):
 
     def forward(self, x):
         return self.b(x)
+
+    def plan_amax(self, d, plan):
+        return self.b.plan_amax(d, plan)
 
 
 class BottleneckCSP(Layer):
@@ -348,6 +462,13 @@ class SPPF(Layer):
         y2 = tnn.max_pool2d(y1, self.k, 1, self.k // 2)
         y3 = tnn.max_pool2d(y2, self.k, 1, self.k // 2)
         return self.cv2(torch.cat([y, y1, y2, y3], -1))
+
+    def plan_amax(self, d, plan):
+        # every max-pool output is an element of y (the window covers its
+        # centre, and the -inf padding never wins): the concat's max is y's
+        _plan_in(self.cv1, d, plan)
+        _plan_in(self.cv2, _plan_out(self.cv1, plan), plan)
+        return _plan_out(self.cv2, plan)
 
 
 def _buffer(module: torch.nn.Module, name: str, arr: np.ndarray) -> None:
@@ -494,10 +615,16 @@ class Upsample(Layer):
     def forward(self, x):
         return tnn.upsample_nearest(x, self.scale)
 
+    def plan_amax(self, d, plan):
+        return d
+
 
 class Concat(Layer):
     def forward(self, xs):
         return torch.cat(xs, -1)
+
+    def plan_amax(self, d, plan):
+        return _plan_union(d)
 
 
 class Detect(Layer):
@@ -585,6 +712,7 @@ class YoloModel(torch.nn.Module):
         self.save = save
         self.strides = strides
         self.anchors = anchors_grid  # (nl, na, 2) grid units
+        self.amax_plan: Optional[AmaxPlan] = None   # quantize_yolo's
 
     @property
     def nc(self) -> int:
@@ -633,9 +761,23 @@ class YoloModel(torch.nn.Module):
         """Run layers ``start:stop`` on ``y``, the output of layer
         ``start - 1`` (kept as that layer's saved output where a later
         layer reads it; no earlier saved output may be needed), and return
-        the last one's output."""
+        the last one's output.  A quantized model's plan slots
+        (:func:`plan_amax`) are zeroed once here for the forward."""
         if any(j < start - 1 for j in self.save):
             raise ValueError(f"a layer before {start - 1} is read later")
+        plan = self.amax_plan
+        if plan is not None:
+            if plan.start != start:
+                plan_amax(self, start)
+            plan.buf = torch.zeros((plan.n,), dtype=torch.float32,
+                                   device=y.device)
+        try:
+            return self._run(y, start, stop, decode)
+        finally:
+            if plan is not None:
+                plan.buf = None
+
+    def _run(self, y, start: int, stop: Optional[int], decode: bool):
         saved: Dict[int, Any] = {}
         if start and (start - 1) in self.save:
             saved[start - 1] = y
@@ -652,11 +794,48 @@ class YoloModel(torch.nn.Module):
         return y
 
 
+def plan_amax(model: YoloModel, start: int) -> AmaxPlan:
+    """Plan the exact max|x| of every int8 conv's input for a forward from
+    layer ``start`` (``forward_from``'s ``f``/``save`` wiring), into
+    ``model.amax_plan``: an I2 epilogue's output has its own slot; a
+    ``Concat`` the max of its parts' slots; an ``Upsample`` its source's;
+    SPPF's concat of ``y`` and its max-pools ``y``'s; a shortcut fused into
+    the int8 cv2 its epilogue's.  Where no slot holds the max (layer
+    ``start - 1``'s output, made outside the plan: K1's or K3's; a float
+    conv's or a residual add's output; any layer kind that does not plan
+    itself, :meth:`Layer.plan_amax`) I1's max pass fills one.  An output
+    slot that no quantize reads is dropped, so that epilogue takes no max.
+    For yolov5s from layer 3: one max pass, 43 quantizes, 50 I2s."""
+    plan = model.amax_plan or AmaxPlan()
+    plan.n, plan.start = 0, start
+    convs = [m for m in model.modules() if isinstance(m, ConvAct)]
+    for m in convs:
+        m.in_plan, m.out_slot, m.plan = None, None, None
+    descs: Dict[int, Any] = {}
+    n = len(model.layers)
+    d = None
+    for l in model.layers[start:]:
+        if l.f != -1:
+            d = (descs.get(l.f % n) if isinstance(l.f, int) else
+                 [d if j == -1 else descs.get(j % n) for j in l.f])
+        d = l.plan_amax(d, plan)
+        if l.i in model.save:
+            descs[l.i] = d
+    read = {k for m in convs if m.in_plan is not None for k in m.in_plan[0]}
+    for m in convs:
+        if m.out_slot not in read:
+            m.out_slot = None
+    model.amax_plan = plan
+    return plan
+
+
 def quantize_yolo(model: YoloModel, min_contract: int = 64) -> YoloModel:
     """Post-training int8 quantization of a detector's convolutions, in
     place (``lpr_tpu/models/yolo.py:1018-1072``): every eligible conv gets
     per-output-channel int8 weights of its BN-folded float weight and runs
-    :func:`tnn.conv2d_int8`, activations quantized per tensor at run time.
+    :func:`tnn.conv2d_int8`, activations quantized per tensor at run time,
+    each input's max|x| carried from the layers that wrote it where the
+    structure shows it exactly (:func:`plan_amax`).
     Skipped, as in the JAX package: the Detect head; the S2D stem conv (and
     the S2D downsamplers, off in the JAX package); depthwise convs and any
     conv with Cin/groups == 1; convs with K = kh * kw * Cin/groups <
@@ -670,6 +849,7 @@ def quantize_yolo(model: YoloModel, min_contract: int = 64) -> YoloModel:
         for m in layer.modules():
             if isinstance(m, ConvAct) and m.int8_eligible(min_contract):
                 m.quantize()
+    plan_amax(model, 0)
     return model
 
 

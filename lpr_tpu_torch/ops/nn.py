@@ -74,7 +74,10 @@ def conv2d_int8(x: Tensor, w_q: Tensor, w_scale: Tensor,
                 b: Optional[Tensor] = None, *,
                 stride: Union[int, Tuple[int, int]] = 1,
                 padding: PadLike = "same", groups: int = 1,
-                packed: Optional[Tensor] = None) -> Tensor:
+                packed: Optional[Tensor] = None,
+                xq: Optional[Tuple[Tensor, Tensor]] = None,
+                act: str = "none", residual: Optional[Tensor] = None,
+                amax: Optional[Tensor] = None) -> Tensor:
     """Dynamically quantized int8 convolution (``lpr_tpu.ops.nn
     .conv2d_int8``): the activations quantized per tensor on the fly
     (max|x| / 127 over the whole batch), int8 x int8 -> int32, then
@@ -82,8 +85,16 @@ def conv2d_int8(x: Tensor, w_q: Tensor, w_scale: Tensor,
     dtype.  ``w_q`` is an HWIO int8 tensor, ``w_scale`` and ``b`` float32
     (Cout,).
 
-    On a CUDA tensor the quantize is kernel I1 and the convolution kernel
-    I2 (``kernels/conv_int8.py``; ``packed``: the weight in I2's layout,
+    The port's model passes more (the JAX-facing call passes none of it):
+    ``xq``, the codes and scale of ``x`` already quantized (a tensor read
+    by two convs is quantized once); ``act`` (``"none"``, ``"silu"``,
+    ``"leaky"``) and ``residual`` (added after it), the layer's activation
+    and its Bottleneck's shortcut; ``amax``, a float32 slot that takes the
+    output's max|y| for the next layer's quantize.
+
+    On a CUDA tensor the quantize is kernel I1 and the convolution, with
+    all of that in its epilogue, kernel I2 (``kernels/conv_int8.py``;
+    ``packed``: the weight in I2's layout,
     :func:`~lpr_tpu_torch.kernels.conv_int8.int8_pack`, packed here when
     None); on a CPU tensor their plain versions."""
     from lpr_tpu_torch.kernels import conv_int8 as ki
@@ -91,11 +102,12 @@ def conv2d_int8(x: Tensor, w_q: Tensor, w_scale: Tensor,
     kh, kw = int(w_q.shape[0]), int(w_q.shape[1])
     pad = _resolve_padding(padding, kh, kw)
     st = (stride, stride) if isinstance(stride, int) else tuple(stride)
-    xq, sx = ki.quantize_act(x)
+    codes, sx = ki.quantize_act(x) if xq is None else xq
     if packed is None and x.device.type == "cuda":
         packed = ki.int8_pack(w_q)
-    return ki.conv_int8(xq, sx, w_q, w_scale, b, stride=st, padding=pad,
-                        groups=groups, out_dtype=x.dtype, packed=packed)
+    return ki.conv_int8(codes, sx, w_q, w_scale, b, stride=st, padding=pad,
+                        groups=groups, out_dtype=x.dtype, packed=packed,
+                        act=act, residual=residual, amax=amax)
 
 
 def depthwise_conv2d(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
@@ -154,6 +166,19 @@ def relu(x: Tensor) -> Tensor:
 def leaky_relu(x: Tensor, slope: float = 0.2) -> Tensor:
     """``where(x >= 0, x, slope * x)``, as the JAX package's."""
     return torch.where(x >= 0, x, slope * x)
+
+
+def act(x: Tensor, name: str) -> Tensor:
+    """A YOLO conv's activation by name: ``"silu"`` (:func:`silu`),
+    ``"leaky"`` (:func:`leaky_relu` at the YOLO builder's slope 0.1) or
+    ``"none"``."""
+    if name == "silu":
+        return silu(x)
+    if name == "leaky":
+        return leaky_relu(x, 0.1)
+    if name != "none":
+        raise ValueError(f"act must be silu, leaky or none, got {name!r}")
+    return x
 
 
 def max_pool2d(x: Tensor, k: int, stride: int = 1,

@@ -70,15 +70,17 @@ def _call(name: str, fn, *args):
 def _kernel_counters():
     """(function, attribute) of every launch count the device step can
     move: K1's bf16 and uint8 instances, K3, K2, and with int8_detector I1
-    and I2."""
-    from lpr_tpu_torch.kernels.conv_int8 import conv_int8, quantize_act
+    (its max pass and its quantize) and I2."""
+    from lpr_tpu_torch.kernels.conv_int8 import (act_amax, conv_int8,
+                                                 quantize_act)
     from lpr_tpu_torch.kernels.lpsr import lpsr_fused
     from lpr_tpu_torch.kernels.yolo_front import yolo_front
     from lpr_tpu_torch.kernels.yolo_mid import yolo_mid
 
     return ((yolo_front, "launches"), (yolo_front, "launches_u8"),
             (yolo_mid, "launches"), (lpsr_fused, "launches"),
-            (quantize_act, "launches"), (conv_int8, "launches"))
+            (act_amax, "launches"), (quantize_act, "launches"),
+            (conv_int8, "launches"))
 
 
 def _counts() -> Tuple[int, ...]:

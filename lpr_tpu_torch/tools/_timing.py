@@ -4,6 +4,8 @@
   them, to print beside every number.
 - :func:`event_ms` — device time per call from CUDA events around a run of
   calls (the host clock around a synchronize on the CPU).
+- :func:`graph_ms` — device time per call from a run of calls captured as
+  one CUDA graph: a kernel's time without its launch's host cost.
 - :func:`host_ms` — wall-clock time per call around a run of calls, ended
   by ``torch.cuda.synchronize()``: what a host-bound caller waits.
 - :func:`profile_window` — one ``torch.profiler`` window over a run of
@@ -78,6 +80,35 @@ def event_ms(fn: Callable[[], object], iters: int,
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn: Callable[[], object], calls: int, rounds: int = 3) -> float:
+    """Device ms per call of fn() on a card, the launch cost taken out:
+    ``calls`` calls captured in one CUDA graph (after two warm-up calls on
+    a side stream), replayed ``rounds`` times between CUDA events; the
+    best round.  fn must be capturable: no host sync, no host data."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    return best
 
 
 def host_ms(fn: Callable[[], object], calls: int,

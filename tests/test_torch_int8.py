@@ -143,6 +143,107 @@ def test_quantize_yolo_matches_jax(which, yolov5n_random):
                for k, v in tyolo.quantized_convs(tm).items())
 
 
+def _planned_model(which, yolov5n_random):
+    """(quantized port model, its detector input, the layer it starts at):
+    plate_det640 from the frames (layers 0-2 int8 too, as on the CPU
+    without fused_front) or after K1's plain version (layer 3, the card's
+    path), or the random yolov5n."""
+    from lpr_tpu_torch.kernels.yolo_front import front_pack, front_plain
+
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 128, 256, 3)
+                         .astype(np.float32))
+    if which == "random yolov5n":
+        _, jp, _ = yolov5n_random
+        tm = tyolo.yolov5("n", nc=11).load_state(params_from_jax(jp))
+        return tyolo.quantize_yolo(tm), x, 0
+    tm = tyolo.load_plate_detector(PLATE, device="cpu")
+    if which == "plate_det640":
+        return tyolo.quantize_yolo(tm), x, 0
+    front = front_pack(tm)
+    tyolo.quantize_yolo(tm)
+    with torch.inference_mode():
+        return tm, front_plain(x, front), 3
+
+
+def _unplanned_head(tm, y, start):
+    """The layers from ``start`` as forward_from runs them, but outside a
+    planned forward: every quantize takes its own max pass."""
+    saved, n = {start - 1: y}, len(tm.layers)
+    for l in tm.layers[start:]:
+        if l.f != -1:
+            y = (saved[l.f % n] if isinstance(l.f, int) else
+                 [y if j == -1 else saved[j % n] for j in l.f])
+        y = l(y)
+        if l.i in tm.save:
+            saved[l.i] = y
+    return y
+
+
+@pytest.mark.parametrize("which", ["plate_det640", "plate_det640 after K1",
+                                   "random yolov5n"])
+def test_amax_plan_carries_each_inputs_exact_max(which, yolov5n_random,
+                                                 monkeypatch):
+    """plan_amax on the int8 detector (C3s with shortcuts, SPPF, the head's
+    upsample and concats), through the plain versions in float32: every
+    quantize that reads slots gets max(slots) equal to x.abs().amax() of
+    the tensor it quantizes, bit for bit; after K1 (layer 3 on) yolov5s
+    takes one max pass (K1's output), 43 quantizes and 50 int8 convs."""
+    tm, y, start = _planned_model(which, yolov5n_random)
+    seen = {"quantize": 0, "planned": 0, "amax": 0, "conv": 0,
+            "conv amax": 0}
+    quantize, act_amax, conv = ki.quantize_act, ki.act_amax, ki.conv_int8
+
+    def q(x, slots=None):
+        seen["quantize"] += 1
+        if slots is not None:
+            seen["planned"] += 1
+            got = torch.stack([t.reshape(()) for t in slots]).amax()
+            ref = x.float().abs().amax()
+            assert got.view(torch.int32) == ref.view(torch.int32), (
+                tuple(x.shape), got.item(), ref.item())
+        return quantize(x, slots)
+
+    def a(x, slot):
+        seen["amax"] += 1
+        return act_amax(x, slot)
+
+    def c(*args, amax=None, **kw):
+        seen["conv"] += 1
+        seen["conv amax"] += amax is not None
+        return conv(*args, amax=amax, **kw)
+
+    monkeypatch.setattr(ki, "quantize_act", q)
+    monkeypatch.setattr(ki, "act_amax", a)
+    monkeypatch.setattr(ki, "conv_int8", c)
+    with torch.inference_mode():
+        tm.forward_from(y, start)
+    max_passes = seen["amax"] - seen["conv amax"]
+    assert seen["planned"] == seen["quantize"] > 0
+    assert seen["conv"] == sum(
+        1 for m in tm.modules() if isinstance(m, tyolo.ConvAct)
+        and m.quantized and int(m.prefix.split("/")[0]) >= start)
+    if which == "plate_det640 after K1":
+        assert (max_passes, seen["quantize"], seen["conv"]) == (1, 43, 50)
+    assert max_passes < seen["quantize"] // 4
+
+
+@pytest.mark.parametrize("which", ["plate_det640", "plate_det640 after K1",
+                                   "random yolov5n"])
+def test_int8_head_with_the_amax_plan_equals_the_head_without(
+        which, yolov5n_random):
+    """The int8 detector's raw head through forward_from (the plan's
+    carried maxima, the shared C3 quantize, the fused activation and
+    shortcut) equals, bit for bit, the same layers run outside a planned
+    forward (each quantize its own max pass), in float32 on the CPU."""
+    tm, y, start = _planned_model(which, yolov5n_random)
+    with torch.inference_mode():
+        got = tm.forward_from(y, start)
+        ref = _unplanned_head(tm, y, start)
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 # (batch, H, W, Cin, Cout, k, stride): strides 1 and 2, k 1 and 3, Cin 16,
 # 64 and 512, and K = 3 * 3 * 512 = 4,608 > 1,040, where float32 sums of
 # the codes would round.
@@ -184,50 +285,92 @@ def test_conv2d_int8_matches_jax(case):
     assert np.abs(got.numpy() - fl).max() / np.abs(fl).max() < 0.02
 
 
-def _emulate_i2(xq, sx, w_q, frag, stride, pad):
-    """I2's tile walk in numpy: per k-step (tap, 32-channel chunk) each
-    output row's 32 codes at its shifted input position (zeros outside),
-    times B rebuilt from the fragments as lane l's registers hold them
-    (b0 = rows 4(l%4)+e, b1 = rows 16+4(l%4)+e of column l/4), summed in
-    int64: the int32 sums."""
+def _swizzle(off: np.ndarray, row_bytes: int) -> np.ndarray:
+    """Byte offsets in the swizzle of width row_bytes (32, 64 or 128; the
+    tile 1024-byte aligned): the 16-byte chunk index XOR the row's index in
+    its group of 8, taken from the address."""
+    return off ^ (((off >> 7) & (row_bytes // 16 - 1)) << 4)
+
+
+def _wgmma_reads(rows: int, row_bytes: int, kk: int) -> np.ndarray:
+    """Byte offsets (rows, 32) at which a wgmma descriptor of a K-major
+    operand of rows of row_bytes, the swizzle of that width, SBO 8 rows,
+    started at k-step kk (32 kk bytes into the tile), reads element (row
+    r, k): the canonical layout ((8, m), (16, 2)) : ((row_bytes, 8
+    row_bytes), (1, 16)) bytes from the start address, then the swizzle on
+    the address."""
+    r = np.arange(rows)[:, None]
+    k = np.arange(32)[None, :]
+    return _swizzle((r // 8) * 8 * row_bytes + (r % 8) * row_bytes
+                    + 32 * kk + k, row_bytes)
+
+
+def _emulate_i2(xq, w_q, pack, stride, pad, bn):
+    """I2's tile walk in numpy: per block (a tile of th x tw output
+    positions of one image, :func:`ki.tile_shape`, by bn channels) and
+    k-stage (a tap and k_stage(Cp) channels: rows of rb bytes), the A box
+    that TMA writes (the tile's input positions at the tap, every
+    stride-th, zeros off the image; row yy * tw + xx) and the weight's
+    boxes (64 rows x rb bytes of int8_pack's K-major matrix), both in the
+    swizzle of width rb, read back k-step by k-step through the wgmma
+    descriptors (:func:`_wgmma_reads`) and multiplied in int64; rows past
+    the tile or the image dropped: the int32 sums."""
     B, H, W, cp = xq.shape
     kh, kw, cin, cout = w_q.shape
-    npad = -(-cout // ki.N_BLOCK) * ki.N_BLOCK
     ho = (H + 2 * pad[0] - kh) // stride + 1
     wo = (W + 2 * pad[1] - kw) // stride + 1
-    f = frag.reshape(-1, npad // 16, 32, 4, 4).astype(np.int64)
-    lane = np.arange(32)
-    acc = np.zeros((B * ho * wo, npad), np.int64)
-    m = np.arange(B * ho * wo)
-    ox, oy, b = m % wo, (m // wo) % ho, m // (wo * ho)
-    nchunk = cp // 32
-    for s in range(f.shape[0]):
-        tap, ch = divmod(s, nchunk)
-        dy, dx = divmod(tap, kw)
-        iy, ix = oy * stride - pad[0] + dy, ox * stride - pad[1] + dx
-        ok = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
-        a = np.zeros((len(m), 32), np.int64)
-        a[ok] = xq[b[ok], iy[ok], ix[ok], ch * 32:(ch + 1) * 32]
-        bm = np.zeros((32, npad), np.int64)
-        for p in range(npad // 16):
-            for word in range(4):
-                nt = 2 * p + word // 2
-                for e in range(4):
-                    rows = 16 * (word % 2) + 4 * (lane % 4) + e
-                    bm[rows, 8 * nt + lane // 4] = f[s, p, :, word, e]
-        acc += a @ bm
-    return acc[:, :cout].reshape(B, ho, wo, cout)
+    tw, th = ki.tile_shape(ho, wo, stride)
+    rb = ki.k_stage(cp)
+    swz_a = _swizzle(np.arange(ki.BM * rb).reshape(ki.BM, rb), rb)
+    swz_b = _swizzle(np.arange(bn * rb).reshape(bn, rb), rb)
+    yy, xx = np.divmod(np.arange(tw * th), tw)
+    out = np.zeros((B, ho, wo, -(-cout // bn) * bn), np.int64)
+    for nb in range(B):
+        for ty in range(-(-ho // th)):
+            for tx in range(-(-wo // tw)):
+                oy, ox = ty * th + yy, tx * tw + xx
+                for n0 in range(0, out.shape[-1], bn):
+                    acc = np.zeros((ki.BM, bn), np.int64)
+                    for ks in range(kh * kw * cp // rb):
+                        tap, c0 = divmod(ks, cp // rb)
+                        c0 *= rb
+                        dy, dx = divmod(tap, kw)
+                        iy = oy * stride - pad[0] + dy
+                        ix = ox * stride - pad[1] + dx
+                        ok = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+                        box = np.zeros((ki.BM, rb), np.int8)
+                        box[:tw * th][ok] = xq[nb, iy[ok], ix[ok],
+                                               c0:c0 + rb]
+                        sa = np.zeros(ki.BM * rb, np.int8)
+                        sa[swz_a] = box
+                        sb = np.zeros(bn * rb, np.int8)
+                        sb[swz_b] = pack[n0:n0 + bn,
+                                         tap * cp + c0:tap * cp + c0 + rb]
+                        for kk in range(rb // 32):
+                            acc += (sa[_wgmma_reads(ki.BM, rb, kk)]
+                                    .astype(np.int64)
+                                    @ sb[_wgmma_reads(bn, rb, kk)]
+                                    .astype(np.int64).T)
+                    keep = (oy < ho) & (ox < wo)
+                    out[nb, oy[keep], ox[keep], n0:n0 + bn] = \
+                        acc[:tw * th][keep]
+    return out[..., :cout]
 
 
-@pytest.mark.parametrize("case", [(2, 9, 11, 16, 24, 3, 2),
-                                  (1, 8, 6, 80, 72, 5, 1),
-                                  (1, 5, 7, 40, 130, 1, 1)])
+@pytest.mark.parametrize("case", [(2, 9, 11, 16, 24, 3, 2, 64),
+                                  (1, 8, 6, 80, 72, 5, 1, 64),
+                                  (1, 5, 7, 40, 130, 1, 1, 64),
+                                  (1, 6, 7, 256, 136, 3, 2, 128)])
 def test_i2_emulation_matches_plain_version(case):
-    """I2's index maps (the padded channels, k-steps over taps and chunks,
-    zero-filled padding taps, the B fragments of int8_pack) reproduce
-    conv_int8_plain's int32 sums exactly, with Cout ragged against the
-    64-wide blocks and Cin ragged against the 32-wide k-steps."""
-    B, H, W, cin, cout, k, s = case
+    """I2's index maps (the padded channels, int8_pack's K-major matrix
+    padded to 128 rows, k-stages of 32, 64 or 128 channels of a tap in the
+    swizzle of that width, spatial tiles read as strided TMA boxes with
+    zeros off the image, both operands read back k-step by k-step through
+    the wgmma descriptors, N tiles of 64 and 128) reproduce conv_int8_plain's
+    int32 sums exactly, with Cout ragged against the tiles, Cin against the
+    k-steps and the image against the spatial tiles; and the pack holds the
+    HWIO weight."""
+    B, H, W, cin, cout, k, s, bn = case
     rng = np.random.RandomState(k)
     x = torch.from_numpy(rng.randn(B, H, W, cin).astype(np.float32))
     wq, ws = tnn.quantize_conv_weight(
@@ -236,10 +379,13 @@ def test_i2_emulation_matches_plain_version(case):
     pad = (k // 2, k // 2)
     ref = ki.conv_int8(xq, sx, torch.from_numpy(wq), torch.from_numpy(ws),
                        None, stride=(s, s), padding=pad, raw=True)
-    frag = ki.int8_pack(wq).numpy()
-    assert frag.size == k * k * ki.padded_channels(cin) * (
-        -(-cout // ki.N_BLOCK) * ki.N_BLOCK)
-    got = _emulate_i2(xq.numpy(), sx, wq, frag, s, pad)
+    pack = ki.int8_pack(wq).numpy()
+    cp = ki.padded_channels(cin)
+    assert pack.shape == (-(-cout // ki.N_PAD) * ki.N_PAD, k * k * cp)
+    hwio = pack[:cout].reshape(cout, k, k, cp).transpose(1, 2, 3, 0)
+    np.testing.assert_array_equal(hwio[:, :, :cin], wq)
+    assert not hwio[:, :, cin:].any() and not pack[cout:].any()
+    got = _emulate_i2(xq.numpy(), wq, pack, s, pad, bn)
     assert ref.dtype == torch.int32
     np.testing.assert_array_equal(got, ref.numpy())
 
