@@ -123,11 +123,24 @@ Phases, each printing one line with its elapsed seconds:
    cli/serve as a process on a free port: one .npy frame POSTed to
    /v2/models/pipeline/infer answers as recognize() does, then SIGINT must
    end it with exit code 0.
-10. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
+10. export — the weights and export surface on the card (temporary
+   files only): plate_det640.npz written as a YOLOv5 .pt
+   (tests/pt_fixture.py: a pickled Model of stand-in classes) and read
+   back by load_yolo_torch without running pickled code: K1's pack and
+   output, and the recognizer's eager step, equal to the npz detector's
+   bit for bit (K1 and K2 must launch); char_ocr_synth.npz the same way
+   through load_char_detector, its detections on 8 plate crops equal to
+   the npz's; LPSR emitted as ONNX and loaded back, K2 float32 (64 crops)
+   and bf16 (24 crops) on it equal to K2 on the npz model bit for bit;
+   run_onnx on the card against LPSR.forward (float32, within
+   ONNX_RUN_TOL); export_lpsr and export_detector (the .pt detector at
+   736x1280) to .pt2 programs, loaded back and run on the card against the
+   forwards (within PT2_TOL).
+11. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
    requests, max_batch 8), with frames, with the pool, over HTTP and, where
    host_decode built, with files: its JSON lines (client frames/s, latency
    p50/p99, mean batch, the card).
-11. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
+12. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
    with BENCH_PACKED=1 and =0, and BENCH_PACKED=1 with BENCH_INT8=1 (which
    must launch I1's two kernels and I2): its JSON lines (frames/s, flops_per_frame,
    mfu_pct against the bf16 peak, the card).
@@ -208,6 +221,12 @@ SERVE_TIMEOUT_S = 240
 # I2's instances: (bf16, float32 out x 3 acts x residual x max, + the raw
 # sums) x N tiles 64 and 128.
 I2_INSTANCES = 50
+# The export phase: the ONNX executor (float32, F.conv2d with TF32 off)
+# against LPSR.forward; a .pt2 program against the module's forward
+# (absolute on the LPSR output in (0, 1), relative to 1 + |pred| on the
+# detector's pixel coordinates).
+ONNX_RUN_TOL = 1e-5
+PT2_TOL = 1e-5
 
 
 def _wall(fn) -> float:
@@ -519,6 +538,184 @@ def apps_phase(card, counts_to_zero, counts, timed, iters):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return entry, note
+
+
+def export_phase(card, counts_to_zero, counts):
+    """Phase export: the reference's pickled-module .pt imported on the
+    card (the plate detector through the recognizer and K1, the char OCR
+    through load_char_detector), LPSR emitted as ONNX and loaded back
+    (K2 bf16 and float32), the ONNX executor on the card and torch.export
+    programs on the card; returns a note for the phase line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lpr_tpu_torch import imageio
+    from lpr_tpu_torch.kernels import lpsr as kl
+    from lpr_tpu_torch.kernels import yolo_front as kf
+    from lpr_tpu_torch.models import yolo as tyolo
+    from lpr_tpu_torch.models.detector import load_char_detector
+    from lpr_tpu_torch.models.lpsr import load_lpsr, lpsr_state
+    from lpr_tpu_torch.pipeline.recognizer import (PipelineConfig,
+                                                   PlateRecognizer)
+    from lpr_tpu_torch.tools.synth import synth_frames
+    from lpr_tpu_torch.weights import (export_program, onnx_export,
+                                       onnx_import, onnx_run)
+    from lpr_tpu_torch.weights.checkpoint import load_state
+    from tests.pt_fixture import write_yolo_pt
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return (a is None and b is None) or torch.equal(a, b)
+
+    def need(c, names, label):
+        if min(c[k] for k in names) < 1:
+            raise AssertionError(f"{label} did not launch {names}: {c}")
+
+    note = {}
+    tmp = tempfile.mkdtemp(prefix="lpr_export_")
+    try:
+        t0 = time.perf_counter()
+        # 1. plate_det640.npz as a YOLOv5 .pt (tests/pt_fixture.py), read by
+        # load_yolo_torch on the card: K1's pack, K1's output and the
+        # recognizer's eager step equal the npz detector's bit for bit.
+        state, _ = load_state(CKPT_PLATE)
+        pt = write_yolo_pt(os.path.join(tmp, "plate.pt"), None,
+                           tyolo.yolov5_spec(nc=11), (8, 16, 32), state,
+                           [f"p{i}" for i in range(11)])
+        plate_pt = tyolo.load_yolo_torch(pt, device="cuda")[0]
+        plate_npz = tyolo.load_plate_detector(CKPT_PLATE)
+        rec = PlateRecognizer(
+            plate_npz, tyolo.load_char_ocr_npz(CKPT_CHAR)[0],
+            load_lpsr(CKPT_LPSR),
+            PipelineConfig(det_hw=DET_HW, dtype=torch.bfloat16))
+        frames = synth_frames(BATCH, FRAME_HW, SEED)
+        pack_npz = rec._front
+        want = rec.step_eager(frames)
+        rec.replace_models(plate_model=plate_pt)
+        if not same(dict(rec._front), dict(pack_npz)):
+            raise AssertionError("K1's pack of the .pt detector differs")
+        x = torch.rand((BATCH, *DET_HW, 3), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           SEED)).to(torch.bfloat16)
+        counts_to_zero()
+        got = rec.step_eager(frames)
+        k1 = [kf.yolo_front(x, p) for p in (rec._front, pack_npz)]
+        torch.cuda.synchronize()
+        c = counts()
+        need(c, ("yolo_front", "lpsr"), "the .pt detector's step")
+        if not torch.equal(*k1):
+            raise AssertionError("K1 on the .pt detector's pack differs")
+        if not same(got, want):
+            raise AssertionError("the recognizer's step with the .pt "
+                                 "detector differs from the npz's")
+        n_plates = int(want["plate_valid"].sum())
+        print(f"export .pt plate detector: K1 pack and output, and the "
+              f"eager step's outputs ({n_plates} plates in {BATCH} frames) "
+              f"equal to the npz detector's bit for bit; launches {c} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        note["pt plate"] = "bit-equal"
+
+        t0 = time.perf_counter()
+        # 2. char_ocr_synth.npz as a char.pt through load_char_detector
+        state, side = load_state(CKPT_CHAR)
+        pt = write_yolo_pt(os.path.join(tmp, "char.pt"), None,
+                           tyolo.char_ocr_spec(), (8,), state,
+                           [f"c{i}" for i in range(36)],
+                           anchors=side["__anchors__"])
+        det_pt, det_npz = load_char_detector(pt), load_char_detector(
+            CKPT_CHAR)
+        folder = EVAL_FOLDERS[1]
+        files = sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+        n_chars = 0
+        for f in files[:8]:
+            crop = imageio.read_rgb(os.path.join(folder, f))
+            a, b = det_pt.detect(crop), det_npz.detect(crop)
+            if not (np.array_equal(a.boxes, b.boxes)
+                    and np.array_equal(a.scores, b.scores)
+                    and np.array_equal(a.classes, b.classes)):
+                raise AssertionError(f"char .pt detections differ on {f}")
+            n_chars += len(a)
+        if n_chars < 1:
+            raise AssertionError("the char detector found no characters")
+        print(f"export .pt char OCR: load_char_detector's detections on 8 "
+              f"crops of {folder} ({n_chars} characters) equal to the "
+              f"npz's bit for bit ({time.perf_counter() - t0:.2f} s)",
+              flush=True)
+        note["pt char"] = "bit-equal"
+
+        t0 = time.perf_counter()
+        # 3. LPSR emitted as ONNX and loaded back on the card: K2 (float32,
+        # then bf16) on it equal to K2 on the npz model bit for bit.
+        onnx = os.path.join(tmp, "sr.onnx")
+        onnx_export.export_lpsr_onnx(lpsr_state(CKPT_LPSR), onnx)
+        sr_onnx, sr_npz = load_lpsr(onnx), load_lpsr(CKPT_LPSR)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        for dt, n in ((torch.float32, 64), (torch.bfloat16, LPSR_N)):
+            crops = torch.rand((n, *LPSR_HW, 3), device="cuda",
+                               generator=gen).to(dt)
+            packs = [kl.lpsr_pack(m.to(dt)) for m in (sr_onnx, sr_npz)]
+            counts_to_zero()
+            ys = [kl.lpsr_fused(crops, p) for p in packs]
+            torch.cuda.synchronize()
+            if counts()["lpsr"] != 2:
+                raise AssertionError(f"K2 {dt}: launches {counts()}")
+            if not torch.equal(*ys):
+                raise AssertionError(f"K2 {dt} on the ONNX-loaded LPSR "
+                                     f"differs from the npz's")
+        print(f"export .onnx LPSR: K2 float32 (64 crops) and bf16 "
+              f"({LPSR_N} crops) on it equal to K2 on the npz model bit "
+              f"for bit ({time.perf_counter() - t0:.2f} s)", flush=True)
+        note["onnx lpsr"] = "bit-equal"
+
+        t0 = time.perf_counter()
+        # 4. the ONNX executor on the card against LPSR.forward (float32,
+        # TF32 off)
+        sr32 = load_lpsr(CKPT_LPSR)
+        x = torch.rand((LPSR_N, 3, *LPSR_HW), device="cuda", generator=gen)
+        with torch.inference_mode():
+            y = onnx_run.run_onnx(onnx_import.load_onnx(onnx),
+                                  {"input_image": x})[0]
+            ref = sr32(x.permute(0, 2, 3, 1).contiguous()).permute(0, 3, 1, 2)
+        err = (y - ref).abs().max().item()
+        print(f"export run_onnx on {y.device}: max_abs_err {err} against "
+              f"LPSR.forward (< {ONNX_RUN_TOL}, float32) "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if y.device.type != "cuda" or not err < ONNX_RUN_TOL:
+            raise AssertionError("run_onnx on the card disagrees")
+        note["run_onnx err"] = err
+
+        t0 = time.perf_counter()
+        # 5. torch.export programs on the card, against the forwards
+        p2 = os.path.join(tmp, "sr.pt2")
+        export_program.export_lpsr(sr32, p2, batch=LPSR_N)
+        xh = x.permute(0, 2, 3, 1).contiguous()
+        with torch.inference_mode():
+            errs = {"lpsr": (export_program.load_fn(p2)(xh) - sr32(xh))
+                    .abs().max().item()}
+        plate32 = tyolo.load_yolo_torch(
+            os.path.join(tmp, "plate.pt"), device="cuda")[0]
+        p3 = os.path.join(tmp, "plate.pt2")
+        export_program.export_detector(plate32, p3, batch=1, hw=DET_HW)
+        xd = torch.rand((1, *DET_HW, 3), device="cuda", generator=gen)
+        with torch.inference_mode():
+            got = export_program.load_fn(p3)(xd)
+            ref = plate32(xd, decode=True)[0]
+        errs["detector"] = ((got - ref).abs() / (1 + ref.abs())).max().item()
+        print(f"export .pt2 on the card: LPSR ({LPSR_N} crops) max_abs_err "
+              f"{errs['lpsr']}, plate detector (1x{DET_HW[0]}x{DET_HW[1]}, "
+              f"decoded) max err / (1 + |pred|) {errs['detector']} against "
+              f"the forwards (< {PT2_TOL}, float32) "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if not max(errs.values()) < PT2_TOL:
+            raise AssertionError(f".pt2 programs disagree: {errs}")
+        note["pt2 err"] = errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return note
 
 
 _T0 = time.perf_counter()
@@ -1665,7 +1862,12 @@ def main() -> int:
     phase("apps", t, f"; {apps_note}, K2 float32 launches in the "
           f"evaluator {apps_entry['launches']}")
 
-    # ---- 10. serving -----------------------------------------------------
+    # ---- 10. export ------------------------------------------------------
+    t = time.perf_counter()
+    export_note = export_phase(card, counts_to_zero, counts)
+    phase("export", t, f"; {export_note} on {card}")
+
+    # ---- 11. serving -----------------------------------------------------
     from lpr_tpu_torch.tools import bench_serving
 
     t = time.perf_counter()
@@ -1677,7 +1879,7 @@ def main() -> int:
             raise AssertionError(f"bench_serving {m}")
     phase("serving", t, f"; modes {[m or ['frames'] for m in modes]}")
 
-    # ---- 11. bench -------------------------------------------------------
+    # ---- 12. bench -------------------------------------------------------
     from lpr_tpu_torch import bench
 
     t = time.perf_counter()

@@ -7,8 +7,9 @@ without SR.
         --sr-weights checkpoints/lpsr_synth_glare/best_model.npz \\
         --ocr-weights checkpoints/char_ocr_synth.npz [--device cpu]
 
-The char OCR loads from the repo's npz checkpoint; LPSR from npz or the
-reference's ``.pth`` state dict.  On the card LPSR runs the K2 kernel.
+The char OCR loads from the repo's npz checkpoint or the reference's
+``char.pt``; LPSR from npz, the reference's ``.pth`` state dict or an
+``.onnx`` graph.  On the card LPSR runs the K2 kernel.
 """
 
 from __future__ import annotations
@@ -37,18 +38,15 @@ def parse_args(argv=None):
 
 def build_evaluator(ocr_weights: str, sr_weights: str, device: str,
                     **kw):
-    """The char OCR (npz) and LPSR (npz or .pth) in an
-    :class:`~lpr_tpu_torch.eval.harness.OcrEvaluator` on ``device``."""
+    """The char OCR (npz or the reference's .pt) and LPSR (npz, .pth or
+    .onnx) in an :class:`~lpr_tpu_torch.eval.harness.OcrEvaluator` on
+    ``device``."""
     from lpr_tpu_torch.eval.harness import OcrEvaluator
     from lpr_tpu_torch.models.lpsr import load_lpsr
-    from lpr_tpu_torch.models.yolo import load_char_ocr_npz
+    from lpr_tpu_torch.models.yolo import load_char_ocr
 
-    if not str(ocr_weights).endswith(".npz"):
-        raise NotImplementedError(
-            f"{ocr_weights}: the port loads the char OCR from its npz "
-            f"checkpoint; .pt import is not ported yet (ROADMAP section 1, "
-            f"item 5)")
-    model, names = load_char_ocr_npz(ocr_weights, device=device)
+    model, _, ck = load_char_ocr(ocr_weights, device=device)
+    names = ck.names
     lpsr = load_lpsr(sr_weights, device=device)
     return OcrEvaluator(model, lpsr, names=names, device=device, **kw)
 

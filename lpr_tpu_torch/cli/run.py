@@ -13,9 +13,10 @@ bf16: K1 for the detector's layers 0-2, K2 for LPSR, the step frozen into
 a CUDA graph.  Frames and panels are written as PNG (the port has no JPEG
 encoder).  Image folders and files are PNG or JPEG
 (:func:`lpr_tpu_torch.imageio.read_rgb`); a video or stream needs cv2,
-imported only then.  ``--d-weights`` takes the repo's npz checkpoint: the
-port neither builds a randomly initialised detector nor imports a ``.pt``,
-so anything else raises.
+imported only then.  ``--r-weights`` takes the repo's npz checkpoint or
+the reference's ``char.pt``; ``--d-weights`` takes the repo's npz
+checkpoint only: the port builds no randomly initialised detector, so
+anything else raises.
 """
 
 from __future__ import annotations
@@ -88,12 +89,12 @@ def frame_source(source: str) -> Iterator[np.ndarray]:
 
 def build_recognizer(args):
     """The PlateRecognizer of the CLI's flags: the detector (npz), char
-    OCR (npz) and LPSR (npz or .pth) at ``--imgsz-det`` square, bf16."""
+    OCR (npz or the reference's .pt) and LPSR (npz, .pth or .onnx) at
+    ``--imgsz-det`` square, bf16."""
     import torch
 
     from lpr_tpu_torch.models.lpsr import load_lpsr
-    from lpr_tpu_torch.models.yolo import (load_char_ocr_npz,
-                                           load_plate_detector)
+    from lpr_tpu_torch.models.yolo import load_char_ocr, load_plate_detector
     from lpr_tpu_torch.pipeline.recognizer import (PipelineConfig,
                                                    PlateRecognizer)
 
@@ -103,14 +104,11 @@ def build_recognizer(args):
             f"--d-weights {args.d_weights!r}: the port loads the plate "
             f"detector from the repo's npz checkpoint (e.g. "
             f"checkpoints/plate_det640.npz); it builds no randomly "
-            f"initialised detector and .pt import is not ported yet "
-            f"(ROADMAP section 1, item 5)")
-    if not args.r_weights.endswith(".npz"):
-        raise NotImplementedError(
-            f"{args.r_weights}: the port loads the char OCR from its npz "
-            f"checkpoint; .pt import is not ported yet")
+            f"initialised detector, where the JAX CLI keeps random weights "
+            f"for anything else, a .pt included")
     plate = load_plate_detector(args.d_weights, device=dev)
-    char, names = load_char_ocr_npz(args.r_weights, device=dev)
+    char, _, ck = load_char_ocr(args.r_weights, device=dev)
+    names = ck.names
     lpsr = load_lpsr(args.sr_weights, device=dev)
     cfg = PipelineConfig(det_hw=(args.imgsz_det, args.imgsz_det),
                          det_conf=args.d_conf, ocr_conf=args.r_conf,

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lpr_tpu_torch.kernels import refuse_export
 from lpr_tpu_torch.ops import nn as tnn
 
 Tensor = torch.Tensor
@@ -232,6 +233,7 @@ def act_amax(x: Tensor, slot: Tensor) -> None:
     (the blocks meet in one ``atomicMax`` on the float's bits: exact, a max
     does not depend on order), or raises; a CPU tensor takes
     :func:`act_amax_plain`."""
+    refuse_export("act_amax")
     if x.device.type == "cpu":
         slot.copy_(torch.maximum(slot.reshape(()), act_amax_plain(x))
                    .reshape(slot.shape))
@@ -258,6 +260,7 @@ def quantize_act(x: Tensor, slots: Optional[Sequence[Tensor]] = None
     (:func:`act_amax`) into a zeroed slot first.  A CUDA tensor (bf16 or
     float32; made contiguous) launches the quantize on the current stream,
     or raises; a CPU tensor takes :func:`quantize_act_plain`."""
+    refuse_export("quantize_act")
     if slots is None:
         slot = torch.zeros((1,), dtype=torch.float32, device=x.device)
         act_amax(x, slot)
@@ -331,6 +334,7 @@ def conv_int8(xq: Tensor, sx: Tensor, w_q: Tensor, w_s: Tensor,
     A CUDA tensor launches the kernel on the current stream with
     ``packed`` (:func:`int8_pack` of ``w_q``), or raises; a CPU tensor takes
     :func:`conv_int8_plain` (and :func:`act_amax` for ``amax``)."""
+    refuse_export("conv_int8")
     stride, padding = tuple(stride), tuple(padding)
     if act not in ACTS:
         raise ValueError(f"conv_int8's act must be one of {ACTS}, got {act!r}")

@@ -38,6 +38,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from lpr_tpu_torch.kernels import refuse_export
+
 Tensor = torch.Tensor
 
 # How close the kernel must come to lpsr_plain.  Both round at the same
@@ -394,6 +396,7 @@ def lpsr_fused(x: Tensor, packed: LpsrPacked) -> Tensor:
     on the bf16 tiles, float32 only with a float32 model's pack, whose TF32
     tiles its wide stages read; anything else raises) and adds one to
     ``lpsr_fused.launches``; a CPU tensor takes :func:`lpsr_plain`."""
+    refuse_export("lpsr_fused")
     if x.device.type == "cpu":
         return lpsr_plain(x, packed)
     if x.device.type != "cuda":

@@ -37,6 +37,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from lpr_tpu_torch.kernels import refuse_export
 from lpr_tpu_torch.ops.nn import silu
 
 Tensor = torch.Tensor
@@ -371,6 +372,7 @@ def yolo_front(x: Tensor, packed: Dict[str, Tensor]) -> Tensor:
     made at ``input_scale=1/255``) its uint8 instance, counted in
     ``yolo_front.launches_u8``; the output is bf16.  A CPU tensor takes
     :func:`front_plain`."""
+    refuse_export("yolo_front")
     if x.device.type == "cpu":
         return front_plain(x, packed)
     out = _launch(x, packed, "yolo_front")
@@ -393,6 +395,7 @@ def front_stage(x: Tensor, packed: Dict[str, Tensor], stage: str) -> Tensor:
     stream (the checks of :func:`yolo_front`) and adds one to
     ``front_stage.launches[stage]``; a CPU tensor takes
     :func:`front_stage_plain`.  ``"full"`` runs K1's own instance."""
+    refuse_export("front_stage")
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
     if x.device.type == "cpu":

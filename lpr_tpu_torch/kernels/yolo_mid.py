@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lpr_tpu_torch.kernels import refuse_export
 from lpr_tpu_torch.kernels.yolo_front import FrontPacked, b_frags
 from lpr_tpu_torch.ops.nn import silu
 
@@ -217,6 +218,7 @@ def yolo_mid(y: Tensor, packed: Dict[str, Tensor]) -> Tensor:
     contiguous, H4 and W4 even, a pack whose ``bf16_exact`` is True;
     anything else raises) and adds one to ``yolo_mid.launches``; a CPU
     tensor takes :func:`mid_plain`."""
+    refuse_export("yolo_mid")
     if y.device.type == "cpu":
         return mid_plain(y, packed)
     if y.device.type != "cuda":

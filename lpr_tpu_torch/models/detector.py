@@ -107,15 +107,11 @@ def load_char_detector(path: str, size=(128, 128), conf_thres=0.25,
                        iou_thres=0.3, device: DeviceLike = "cuda",
                        **kw) -> Detector:
     """The reference usage ``Detection(weights_path=char.pt,
-    size=(128, 128))``, from the char OCR's npz checkpoint
-    (:func:`~lpr_tpu_torch.models.yolo.load_char_ocr_npz`).  A ``.pt``
-    checkpoint raises: its import belongs with the port's export."""
-    from lpr_tpu_torch.models.yolo import load_char_ocr_npz
+    size=(128, 128))``: the char OCR from the reference's ``.pt`` or the
+    repo's npz checkpoint (:func:`~lpr_tpu_torch.models.yolo
+    .load_char_ocr`)."""
+    from lpr_tpu_torch.models.yolo import load_char_ocr
 
-    if not str(path).endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: the port loads the char detector from an npz "
-            f"checkpoint; .pt import is not ported yet")
-    model, names = load_char_ocr_npz(path, device=device)
-    return Detector(model, names, size, conf_thres, iou_thres,
+    model, _, ck = load_char_ocr(path, device=device)
+    return Detector(model, ck.names, size, conf_thres, iou_thres,
                     device=device, **kw)

@@ -211,21 +211,29 @@ def lpsr_from_torch(sd: Dict[str, np.ndarray],
     return out
 
 
-def load_lpsr(path: str, cfg: LPSRConfig = LPSRConfig(),
-              device: DeviceLike = "cuda") -> LPSR:
-    """LPSR from a flat npz checkpoint such as
-    ``checkpoints/lpsr_synth_glare/best_model.npz``, or from the
-    reference's PyTorch state dict (``.pth``/``.pt``,
-    :func:`lpr_tpu_torch.weights.torch_ckpt.load_state_dict`).  ONNX
-    import is not ported yet (ROADMAP section 1, item 5)."""
-    dev = resolve_device(device)
+def lpsr_state(path: str, cfg: LPSRConfig = LPSRConfig()) -> State:
+    """The flat LPSR state of a checkpoint: a flat npz such as
+    ``checkpoints/lpsr_synth_glare/best_model.npz``, the reference's
+    PyTorch state dict (``.pth``/``.pt``,
+    :func:`lpr_tpu_torch.weights.torch_ckpt.load_state_dict`) or an
+    exported ``.onnx`` graph, whose initializers carry the torch names
+    (``lpr_tpu/models/lpsr.py:332-335``)."""
     if str(path).endswith(".npz"):
-        state, _ = load_state(path)
-    elif str(path).endswith((".pth", ".pt")):
+        return load_state(path)[0]
+    if str(path).endswith((".pth", ".pt")):
         from lpr_tpu_torch.weights.torch_ckpt import load_state_dict
 
-        state = lpsr_from_torch(load_state_dict(path), cfg)
-    else:
-        raise ValueError(f"{path}: the port loads LPSR from .npz, .pth or "
-                         f".pt; .onnx import is not ported yet")
-    return LPSR(state, cfg).to(dev).eval()
+        return lpsr_from_torch(load_state_dict(path), cfg)
+    if str(path).endswith(".onnx"):
+        from lpr_tpu_torch.weights.onnx_import import load_onnx
+
+        return lpsr_from_torch(load_onnx(path)["initializers"], cfg)
+    raise ValueError(f"{path}: the port loads LPSR from .npz, .pth, .pt or "
+                     f".onnx")
+
+
+def load_lpsr(path: str, cfg: LPSRConfig = LPSRConfig(),
+              device: DeviceLike = "cuda") -> LPSR:
+    """LPSR on ``device`` from any checkpoint :func:`lpsr_state` reads."""
+    dev = resolve_device(device)
+    return LPSR(lpsr_state(path, cfg), cfg).to(dev).eval()

@@ -9,11 +9,14 @@ with depth/width multiples) produce a :class:`YoloModel` of
 GhostConv, GhostBottleneck, SPP, SPPF, Concat, Contract, Expand,
 nn.Upsample, Detect, Classify), and the named sizes yolov5{n,s,m,l,x} with
 their P6 variants (:func:`yolov5`).  Weights come from the repo's flat npz
-state (:mod:`lpr_tpu_torch.weights.checkpoint`), with batch norm folded into
-the convolutions at load time (``fuse_conv_bn``, eps 1e-3): the port runs
-inference only.  Activations are NHWC throughout; ``Detect`` returns the
-raw per-scale logits ``(B, na, ny, nx, 5+nc)`` for lazy-decode NMS, and
-with ``decode=True`` also the decoded ``(B, N, 5+nc)`` predictions.
+state (:mod:`lpr_tpu_torch.weights.checkpoint`) or from a YOLOv5 ``.pt``,
+the reference's pickled ``Model``, read without running pickled code and
+mapped onto the same flat state (:func:`load_yolo_torch`,
+:func:`state_from_torch`), with batch norm folded into the convolutions at
+load time (``fuse_conv_bn``, eps 1e-3): the port runs inference only.
+Activations are NHWC throughout; ``Detect`` returns the raw per-scale
+logits ``(B, na, ny, nx, 5+nc)`` for lazy-decode NMS, and with
+``decode=True`` also the decoded ``(B, N, 5+nc)`` predictions.
 :func:`quantize_yolo` gives the detector its int8 form
 (``PipelineConfig.int8_detector``).
 """
@@ -258,7 +261,7 @@ class Focus(Layer):
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
         super().__init__()
-        self.k, self.s = k, s
+        self.c1, self.c2, self.k, self.s = c1, c2, k, s
 
     def load(self, state, prefix):
         self.cv = ConvAct(state, prefix, k=self.k, stride=self.s)
@@ -433,7 +436,7 @@ class SPP(Layer):
 
     def __init__(self, c1: int, c2: int, k: Tuple[int, ...] = (5, 9, 13)):
         super().__init__()
-        self.k = tuple(k)
+        self.c1, self.c2, self.k = c1, c2, tuple(k)
 
     def load(self, state, prefix):
         self.cv1 = ConvAct(state, f"{prefix}/cv1", k=1)
@@ -450,7 +453,7 @@ class SPPF(Layer):
 
     def __init__(self, c1: int, c2: int, k: int = 5):
         super().__init__()
-        self.k = k
+        self.c1, self.c2, self.k = c1, c2, k
 
     def load(self, state, prefix):
         self.cv1 = ConvAct(state, f"{prefix}/cv1", k=1)
@@ -1173,3 +1176,197 @@ def load_char_ocr_npz(path: str, device: DeviceLike = "cuda"):
         None if anchors is None else np.asarray(anchors, np.float32)),
         strides=(8,))
     return model.load_state(state).to(dev).eval(), list(OCR_CLASSES)
+
+
+# ---------------------------------------------------------------------------
+# import of the reference's pickled-Model checkpoints (.pt)
+
+
+def torch_names(model: YoloModel, prefix: str = "model"
+                ) -> List[Tuple[str, str, str]]:
+    """Where each entry of the flat state lives in a YOLOv5 ``.pt``'s state
+    dict, by layer plan (the JAX layers' ``import_torch``,
+    ``lpr_tpu/models/yolo.py:119-820``): ``(kind, state key, torch name)``.
+    Kinds: ``conv`` a Conv(+BN) block at a torch prefix (``.conv.weight``
+    with ``.bn.*`` or ``.conv.bias``; ``conv?`` the same where the block may
+    be absent), ``w`` a bare conv weight, ``vec`` a vector, ``lin`` a
+    Linear weight, ``bn`` a standalone batch norm at a torch prefix."""
+    out: List[Tuple[str, str, str]] = []
+
+    def conv(k, p, kind="conv"):
+        out.append((kind, k, p))
+
+    def pair(k, p):
+        conv(f"{k}/cv1", f"{p}.cv1")
+        conv(f"{k}/cv2", f"{p}.cv2")
+
+    def ghost_bottleneck(k, p, s):
+        pair(f"{k}/g1", f"{p}.conv.0")
+        pair(f"{k}/g2", f"{p}.conv.2")
+        if s == 2:
+            conv(f"{k}/dw", f"{p}.conv.1")
+            conv(f"{k}/sc_dw", f"{p}.shortcut.0")
+            conv(f"{k}/sc_pw", f"{p}.shortcut.1")
+
+    def transformer(k, p, n):
+        conv(f"{k}/conv", f"{p}.conv", "conv?")
+        out.append(("lin", f"{k}/linear/w", f"{p}.linear.weight"))
+        out.append(("vec", f"{k}/linear/b", f"{p}.linear.bias"))
+        for j in range(n):
+            t = f"{p}.tr.{j}"
+            for key, name, kind in (
+                    ("q", "q.weight", "lin"), ("k", "k.weight", "lin"),
+                    ("v", "v.weight", "lin"),
+                    ("in_proj_w", "ma.in_proj_weight", "lin"),
+                    ("in_proj_b", "ma.in_proj_bias", "vec"),
+                    ("out_proj_w", "ma.out_proj.weight", "lin"),
+                    ("out_proj_b", "ma.out_proj.bias", "vec"),
+                    ("fc1", "fc1.weight", "lin"),
+                    ("fc2", "fc2.weight", "lin")):
+                out.append((kind, f"{k}/tr/{j}/{key}", f"{t}.{name}"))
+
+    for lay in model.layers:
+        k, p = str(lay.i), f"{prefix}.{lay.i}"
+        if isinstance(lay, Focus):
+            conv(k, f"{p}.conv")
+        elif isinstance(lay, Conv):                  # DWConv too
+            conv(k, p)
+        elif isinstance(lay, BottleneckLayer):
+            pair(k, p)
+        elif isinstance(lay, C3):
+            pair(k, p)
+            conv(f"{k}/cv3", f"{p}.cv3")
+            if isinstance(lay, C3TR):
+                transformer(f"{k}/m", f"{p}.m", lay.n)
+            elif isinstance(lay, C3SPP):
+                pair(f"{k}/m", f"{p}.m")
+            elif isinstance(lay, C3Ghost):
+                for j in range(lay.n):
+                    ghost_bottleneck(f"{k}/m/{j}", f"{p}.m.{j}", 1)
+            else:
+                for j in range(lay.n):
+                    pair(f"{k}/m/{j}", f"{p}.m.{j}")
+        elif isinstance(lay, BottleneckCSP):
+            conv(f"{k}/cv1", f"{p}.cv1")
+            out.append(("w", f"{k}/cv2/w", f"{p}.cv2.weight"))
+            out.append(("w", f"{k}/cv3/w", f"{p}.cv3.weight"))
+            conv(f"{k}/cv4", f"{p}.cv4")
+            out.append(("bn", f"{k}/bn", f"{p}.bn"))
+            for j in range(lay.n):
+                pair(f"{k}/m/{j}", f"{p}.m.{j}")
+        elif isinstance(lay, (SPP, SPPF, GhostConv)):
+            pair(k, p)
+        elif isinstance(lay, GhostBottleneck):
+            ghost_bottleneck(k, p, lay.s)
+        elif isinstance(lay, Classify):
+            out.append(("w", f"{k}/w", f"{p}.conv.weight"))
+            out.append(("vec", f"{k}/b", f"{p}.conv.bias"))
+        elif isinstance(lay, Detect):
+            for l in range(lay.nl):
+                out.append(("w", f"{k}/m/{l}/w", f"{p}.m.{l}.weight"))
+                out.append(("vec", f"{k}/m/{l}/b", f"{p}.m.{l}.bias"))
+    return out
+
+
+_BN_NAMES = (("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
+             ("var", "running_var"))
+
+
+def state_from_torch(model: YoloModel, sd: Dict[str, np.ndarray],
+                     fuse: bool = True, prefix: str = "model") -> State:
+    """A YOLOv5 ``.pt``'s state dict (:class:`~lpr_tpu_torch.weights
+    .torch_ckpt.YoloCheckpoint`'s ``state_dict``) as the flat state of
+    ``model``'s layer plan, equal key for key and bit for bit to the
+    flattened params of the JAX ``YoloModel.import_torch``: conv weights
+    HWIO, Linear weights (in, out); ``fuse`` folds each conv's batch norm
+    into ``w`` and ``b`` (``fuse_conv_bn``), else keeps it under ``bn/*``
+    (:meth:`YoloModel.load_state` folds it then)."""
+    from lpr_tpu_torch.weights import convert as cvt
+
+    out: State = {}
+    for kind, k, name in torch_names(model, prefix):
+        if kind in ("conv", "conv?"):
+            if kind == "conv?" and f"{name}.conv.weight" not in sd:
+                continue
+            w = cvt.conv_w(sd[f"{name}.conv.weight"])
+            if f"{name}.bn.weight" in sd:
+                bn = [cvt.vec(sd[f"{name}.bn.{t}"]) for _, t in _BN_NAMES]
+                if fuse:
+                    out[f"{k}/w"], out[f"{k}/b"] = tnn.fuse_conv_bn(w, None,
+                                                                    *bn)
+                    continue
+                for (key, _), v in zip(_BN_NAMES, bn):
+                    out[f"{k}/bn/{key}"] = v
+            elif f"{name}.conv.bias" in sd:
+                out[f"{k}/b"] = cvt.vec(sd[f"{name}.conv.bias"])
+            out[f"{k}/w"] = w
+        elif kind == "bn":
+            for key, t in _BN_NAMES:
+                out[f"{k}/{key}"] = cvt.vec(sd[f"{name}.{t}"])
+        else:
+            fn = {"w": cvt.conv_w, "vec": cvt.vec, "lin": cvt.linear_w}[kind]
+            out[k] = fn(sd[name])
+    return out
+
+
+def spec_from_yaml(yaml: Dict[str, Any], nc: int) -> YoloSpec:
+    """The architecture yaml a YOLOv5 checkpoint embeds as a
+    :class:`YoloSpec` (``lpr_tpu/models/yolo.py:1425-1438``)."""
+    def rows(rs):
+        return tuple((r[0] if not isinstance(r[0], list) else list(r[0]),
+                      int(r[1]), str(r[2]), list(r[3])) for r in rs)
+
+    return YoloSpec(
+        nc=nc, depth_multiple=float(yaml.get("depth_multiple", 1.0)),
+        width_multiple=float(yaml.get("width_multiple", 1.0)),
+        anchors=yaml.get("anchors"), backbone=rows(yaml["backbone"]),
+        head=rows(yaml["head"]), ch=int(yaml.get("ch", 3)))
+
+
+def load_yolo_torch(path, fuse: bool = True, device: DeviceLike = "cuda"):
+    """Any YOLOv5 ``.pt`` (a pickled ``Model``, the reference's
+    ``attempt_load`` input), read without running pickled code
+    (``lpr_tpu/models/yolo.py:1396-1449``): the spec from the checkpoint's
+    own yaml, anchors from the Detect buffer (AutoAnchor-evolved values
+    survive), strides from the saved stride tensor.  Returns ``(model,
+    state, ck)``: the model loaded on ``device``, its flat state
+    (:func:`state_from_torch`) and the
+    :class:`~lpr_tpu_torch.weights.torch_ckpt.YoloCheckpoint`.
+
+    A list of paths gives a :class:`YoloEnsemble`, the list of states and
+    the LAST checkpoint (whose names the reference adopts)."""
+    from lpr_tpu_torch.weights.torch_ckpt import YoloCheckpoint
+
+    if isinstance(path, (list, tuple)):
+        if len(path) == 1:
+            return load_yolo_torch(path[0], fuse=fuse, device=device)
+        loaded = [load_yolo_torch(p, fuse=fuse, device=device) for p in path]
+        return (YoloEnsemble([m for m, _, _ in loaded]),
+                [s for _, s, _ in loaded], loaded[-1][2])
+    dev = resolve_device(device)
+    ck = YoloCheckpoint(path)
+    if not ck.yaml.get("backbone"):
+        raise ValueError(f"{path}: no architecture yaml in checkpoint")
+    spec = spec_from_yaml(ck.yaml, ck.nc)
+    if ck.stride is not None:
+        strides = tuple(int(s) for s in np.asarray(ck.stride).ravel())
+    else:  # from the number of Detect inputs (P3 up)
+        strides = tuple(8 * 2 ** i for i in range(len(spec.head[-1][0])))
+    model = build_yolo(spec, ckpt_anchors=ck.anchors, strides=strides)
+    state = state_from_torch(model, ck.state_dict, fuse=fuse)
+    return model.load_state(state).to(dev).eval(), state, ck
+
+
+def load_char_ocr(path: str, fuse: bool = True, device: DeviceLike = "cuda"):
+    """The char OCR model from the reference's ``char.pt``
+    (:func:`load_yolo_torch`) or from the repo's npz checkpoint
+    (:func:`load_char_ocr_npz`), as ``lpr_tpu.models.yolo.load_char_ocr``
+    takes either.  Returns ``(model, state, ck)``; ``ck.names`` are the
+    class names (for an npz, the 36 OCR classes)."""
+    import types
+
+    if not str(path).endswith(".npz"):
+        return load_yolo_torch(path, fuse=fuse, device=device)
+    model, names = load_char_ocr_npz(path, device=device)
+    return model, load_state(path)[0], types.SimpleNamespace(
+        names=names, yaml={}, path=path)

@@ -367,10 +367,38 @@ def test_cli_run_refuses_detector_weights_that_are_not_npz(d_weights, err):
         argv += ["--d-weights", d_weights]
     with pytest.raises(err, match="npz"):
         cli_run.build_recognizer(cli_run.parse_args(argv))
-    with pytest.raises(NotImplementedError, match=".pt"):
-        cli_run.build_recognizer(cli_run.parse_args(
-            ["--source", "x", "--d-weights", PLATE, "--r-weights", "char.pt",
+
+
+@pytest.mark.parametrize("app", ["run", "evaluate"])
+def test_cli_run_and_evaluate_load_a_char_pt(app, tmp_path, monkeypatch):
+    """cli/run's --r-weights and cli/evaluate's --ocr-weights take a char.pt
+    (written by the test, tests/pt_fixture.py): the app's char model holds
+    the weights of the JAX load_char_ocr of the same file (every buffer
+    equal, in the app's dtype) and its class names."""
+    from lpr_tpu.models import yolo as jyolo
+    from lpr_tpu_torch.weights.checkpoint import params_from_jax
+
+    from .test_torch_pt_import import CHAR_NAMES, _char_pt
+
+    path = _char_pt(tmp_path, monkeypatch)
+    if app == "run":
+        rec = cli_run.build_recognizer(cli_run.parse_args(
+            ["--source", "x", "--d-weights", PLATE, "--r-weights", path,
              "--sr-weights", LPSR, *CPU]))
+        model, names = rec.char_model, rec.char_names
+    else:
+        ev = cli_evaluate.build_evaluator(path, LPSR, "cpu")
+        model, names = ev.char_model, ev.names
+    jm, jp, jck = jyolo.load_char_ocr(path)
+    assert names == jck.names == CHAR_NAMES
+    want = tyolo.build_yolo(tyolo.char_ocr_spec(), ckpt_anchors=jm.anchors,
+                            strides=(8,)).load_state(params_from_jax(jp))
+    got = dict(model.named_buffers())
+    dtype = next(iter(got.values())).dtype
+    want = dict(want.to(dtype).named_buffers())
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_cli_serve_starts_and_stops(monkeypatch, capsys):

@@ -363,17 +363,30 @@ def test_cyclegan_pth_loads_in_both_packages(tmp_path):
 
 
 def test_load_state_dict_refuses_a_pickled_module(tmp_path):
+    """A pickled module is not a state dict: the port's restricted reader
+    (the JAX reader's) refuses it as the JAX load_state_dict does, and so
+    does load_lpsr; a dict holding more than tensors too.  An .onnx LPSR
+    (the port's emit of the npz) loads, equal to the npz model."""
+    from lpr_tpu_torch.weights.onnx_export import export_lpsr_onnx
+
     path = str(tmp_path / "module.pt")
     torch.save(torch.nn.Linear(2, 2), path)
-    with pytest.raises(ValueError, match="item 5"):
+    with pytest.raises(ValueError, match="not a plain state-dict"):
+        jckpt.load_state_dict(path)
+    with pytest.raises(ValueError, match="not a plain state-dict"):
         tckpt.load_state_dict(path)
-    with pytest.raises(ValueError, match="item 5"):
+    with pytest.raises(ValueError, match="not a plain state-dict"):
         tlpsr.load_lpsr(path, device="cpu")
     torch.save({"a": torch.ones(2), "b": 3}, path)
     with pytest.raises(ValueError, match="plain state-dict"):
         tckpt.load_state_dict(path)
-    with pytest.raises(ValueError, match="onnx"):
-        tlpsr.load_lpsr(str(tmp_path / "m.onnx"), device="cpu")
+    onnx = str(tmp_path / "m.onnx")
+    export_lpsr_onnx(tlpsr.lpsr_state(LPSR), onnx)
+    got = dict(tlpsr.load_lpsr(onnx, device="cpu").named_buffers())
+    want = dict(tlpsr.load_lpsr(LPSR, device="cpu").named_buffers())
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 # ---- on the card ---------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax, nor lpr_tpu, nor PIL, and
-its entry points refuse to run without a card unless asked for the CPU."""
+"""The port stands alone: it imports neither jax, nor ml_dtypes, nor
+lpr_tpu, nor PIL, and its entry points refuse to run without a card
+unless asked for the CPU."""
 
 import os
 import shutil
@@ -14,13 +15,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["ml_dtypes"] = None
 sys.modules["PIL"] = None
 import lpr_tpu_torch
 for m in pkgutil.walk_packages(lpr_tpu_torch.__path__, "lpr_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
-    n == "lpr_tpu" or n.startswith(("lpr_tpu.", "jax", "PIL"))))
+    n == "lpr_tpu" or n.startswith(("lpr_tpu.", "jax", "ml_dtypes", "PIL"))))
 print("BAD", bad)
 """
 
@@ -32,6 +34,8 @@ def _run(args, cwd, **env):
 
 
 def test_port_and_chip_smoke_import_no_jax_lpr_tpu_or_pil():
+    """Every module of the port, and chip_smoke.py, imported with jax,
+    ml_dtypes and PIL unimportable: none of them, nor lpr_tpu, loads."""
     r = _run(["-c", _PROBE], ROOT, PYTHONPATH=ROOT)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
@@ -122,3 +126,23 @@ def test_the_walk_covers_the_eval_and_cli_modules():
             "lpr_tpu_torch.cli.find_improvement", "lpr_tpu_torch.imageio",
             "lpr_tpu_torch.pipeline.annotate", "lpr_tpu_torch.pipeline.draw",
             "lpr_tpu_torch.weights.torch_ckpt"} <= names
+
+
+def test_the_walk_covers_the_weights_and_export_modules():
+    """The import probe above also walks the pickled-module reader, the
+    ONNX emitter, reader and executor, the torch and torch.export
+    exporters and the export CLI, so none of them may import jax,
+    ml_dtypes, lpr_tpu or PIL."""
+    import pkgutil
+
+    import lpr_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(lpr_tpu_torch.__path__,
+                                                   "lpr_tpu_torch.")}
+    assert {"lpr_tpu_torch.weights.torch_ckpt",
+            "lpr_tpu_torch.weights.onnx_export",
+            "lpr_tpu_torch.weights.onnx_import",
+            "lpr_tpu_torch.weights.onnx_run",
+            "lpr_tpu_torch.weights.export_torch",
+            "lpr_tpu_torch.weights.export_program",
+            "lpr_tpu_torch.cli.export"} <= names

@@ -288,7 +288,9 @@ def test_detector_matches_jax():
     round (a coordinate within float32 rounding of a .5 could round apart:
     none here), scores within 1e-4.  The frames: the port's numpy street
     scenes (lpr_tpu_torch/tools/synth.py).  load_char_detector takes the
-    npz checkpoint and refuses a .pt."""
+    npz checkpoint, and a .pt goes to the pickled-module reader (a missing
+    one raises FileNotFoundError there; tests/test_torch_pt_import.py loads
+    one)."""
     from lpr_tpu.models.detector import Detector as JDetector
     from lpr_tpu.pipeline.recognizer import DETECT_CLASSES
     from lpr_tpu_torch.tools.synth import synth_frames
@@ -312,7 +314,7 @@ def test_detector_matches_jax():
                                                   r.tolist()]
     cd = load_char_detector(CHAR, device="cpu", dtype=torch.float32)
     assert len(cd.names) == 36 and cd.size == (128, 128)
-    with pytest.raises(NotImplementedError, match=".pt"):
+    with pytest.raises(FileNotFoundError, match="char.pt"):
         load_char_detector("weights/char.pt", device="cpu")
 
 
