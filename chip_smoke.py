@@ -128,7 +128,8 @@ Phases, each printing one line with its elapsed seconds:
    (tests/pt_fixture.py: a pickled Model of stand-in classes) and read
    back by load_yolo_torch without running pickled code: K1's pack and
    output, and the recognizer's eager step, equal to the npz detector's
-   bit for bit (K1 and K2 must launch); char_ocr_synth.npz the same way
+   bit for bit (the step launches K1 once and K2 once, no other kernel);
+   char_ocr_synth.npz the same way
    through load_char_detector, its detections on 8 plate crops equal to
    the npz's; LPSR emitted as ONNX and loaded back, K2 float32 (64 crops)
    and bf16 (24 crops) on it equal to K2 on the npz model bit for bit;
@@ -571,10 +572,6 @@ def export_phase(card, counts_to_zero, counts):
             return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
         return (a is None and b is None) or torch.equal(a, b)
 
-    def need(c, names, label):
-        if min(c[k] for k in names) < 1:
-            raise AssertionError(f"{label} did not launch {names}: {c}")
-
     note = {}
     tmp = tempfile.mkdtemp(prefix="lpr_export_")
     try:
@@ -583,7 +580,7 @@ def export_phase(card, counts_to_zero, counts):
         # load_yolo_torch on the card: K1's pack, K1's output and the
         # recognizer's eager step equal the npz detector's bit for bit.
         state, _ = load_state(CKPT_PLATE)
-        pt = write_yolo_pt(os.path.join(tmp, "plate.pt"), None,
+        pt = write_yolo_pt(os.path.join(tmp, "plate.pt"),
                            tyolo.yolov5_spec(nc=11), (8, 16, 32), state,
                            [f"p{i}" for i in range(11)])
         plate_pt = tyolo.load_yolo_torch(pt, device="cuda")[0]
@@ -601,28 +598,35 @@ def export_phase(card, counts_to_zero, counts):
         x = torch.rand((BATCH, *DET_HW, 3), device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(
                            SEED)).to(torch.bfloat16)
+        # the step's own launches: K1 once, K2 once, nothing else
         counts_to_zero()
         got = rec.step_eager(frames)
-        k1 = [kf.yolo_front(x, p) for p in (rec._front, pack_npz)]
         torch.cuda.synchronize()
-        c = counts()
-        need(c, ("yolo_front", "lpsr"), "the .pt detector's step")
-        if not torch.equal(*k1):
-            raise AssertionError("K1 on the .pt detector's pack differs")
+        c = {k: v for k, v in counts().items() if v}
+        if c != {"yolo_front": 1, "lpsr": 1}:
+            raise AssertionError(f"the .pt detector's step launched {c}, "
+                                 f"not K1 once and K2 once")
         if not same(got, want):
             raise AssertionError("the recognizer's step with the .pt "
                                  "detector differs from the npz's")
+        counts_to_zero()
+        k1 = [kf.yolo_front(x, p) for p in (rec._front, pack_npz)]
+        torch.cuda.synchronize()
+        if counts()["yolo_front"] != 2 or not torch.equal(*k1):
+            raise AssertionError(f"K1 on the .pt detector's pack differs "
+                                 f"(launches {counts()})")
         n_plates = int(want["plate_valid"].sum())
         print(f"export .pt plate detector: K1 pack and output, and the "
               f"eager step's outputs ({n_plates} plates in {BATCH} frames) "
-              f"equal to the npz detector's bit for bit; launches {c} "
-              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+              f"equal to the npz detector's bit for bit; the step's "
+              f"launches {c} ({time.perf_counter() - t0:.2f} s)",
+              flush=True)
         note["pt plate"] = "bit-equal"
 
         t0 = time.perf_counter()
         # 2. char_ocr_synth.npz as a char.pt through load_char_detector
         state, side = load_state(CKPT_CHAR)
-        pt = write_yolo_pt(os.path.join(tmp, "char.pt"), None,
+        pt = write_yolo_pt(os.path.join(tmp, "char.pt"),
                            tyolo.char_ocr_spec(), (8,), state,
                            [f"c{i}" for i in range(36)],
                            anchors=side["__anchors__"])
@@ -1517,7 +1521,8 @@ def main() -> int:
                                                    PlateRecognizer, to_host)
 
     t = time.perf_counter()
-    char, names = load_char_ocr_npz(CKPT_CHAR)
+    char, _, ck = load_char_ocr_npz(CKPT_CHAR)
+    names = ck.names
     P = PipelineConfig().max_plates
     expect = {"plate_boxes": (BATCH, P, 4), "plate_scores": (BATCH, P),
               "plate_classes": (BATCH, P), "plate_valid": (BATCH, P),

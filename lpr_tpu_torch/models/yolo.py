@@ -1166,7 +1166,10 @@ def load_plate_detector(path: str, device: DeviceLike = "cuda",
 def load_char_ocr_npz(path: str, device: DeviceLike = "cuda"):
     """The char OCR model (``char_ocr_spec``) from a flat npz checkpoint
     with its anchors under ``__anchors__`` (grid units).  Returns
-    ``(model, names)`` with the 36 OCR class names."""
+    ``(model, state, ck)`` like :func:`load_yolo_torch`, with ``ck.names``
+    the 36 OCR class names."""
+    import types
+
     from lpr_tpu_torch.pipeline.chars import OCR_CLASSES
 
     dev = resolve_device(device)
@@ -1175,7 +1178,8 @@ def load_char_ocr_npz(path: str, device: DeviceLike = "cuda"):
     model = build_yolo(char_ocr_spec(), ckpt_anchors=(
         None if anchors is None else np.asarray(anchors, np.float32)),
         strides=(8,))
-    return model.load_state(state).to(dev).eval(), list(OCR_CLASSES)
+    ck = types.SimpleNamespace(names=list(OCR_CLASSES), yaml={}, path=path)
+    return model.load_state(state).to(dev).eval(), state, ck
 
 
 # ---------------------------------------------------------------------------
@@ -1363,10 +1367,6 @@ def load_char_ocr(path: str, fuse: bool = True, device: DeviceLike = "cuda"):
     (:func:`load_char_ocr_npz`), as ``lpr_tpu.models.yolo.load_char_ocr``
     takes either.  Returns ``(model, state, ck)``; ``ck.names`` are the
     class names (for an npz, the 36 OCR classes)."""
-    import types
-
-    if not str(path).endswith(".npz"):
-        return load_yolo_torch(path, fuse=fuse, device=device)
-    model, names = load_char_ocr_npz(path, device=device)
-    return model, load_state(path)[0], types.SimpleNamespace(
-        names=names, yaml={}, path=path)
+    if str(path).endswith(".npz"):
+        return load_char_ocr_npz(path, device=device)
+    return load_yolo_torch(path, fuse=fuse, device=device)

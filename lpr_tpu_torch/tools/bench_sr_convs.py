@@ -123,7 +123,7 @@ def main(argv=None) -> int:
     print(_row(f"LPSR.forward ({n} crops, {h}x{w}, composed)", ms,
                lpsr_work(n, h, w)[0], dev))
 
-    char, _ = load_char_ocr_npz(CKPT_CHAR, device=dev)
+    char, _, _ = load_char_ocr_npz(CKPT_CHAR, device=dev)
     char = char.to(bf)
     c = 128 // d
     canvases = rand(2 * n, c, c, 3)

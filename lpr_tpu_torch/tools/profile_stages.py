@@ -61,7 +61,8 @@ def build_recognizer(device, dtype=torch.bfloat16, det_hw=DET_HW,
     from lpr_tpu_torch.pipeline.recognizer import (PipelineConfig,
                                                    PlateRecognizer)
 
-    char, names = load_char_ocr_npz("checkpoints/char_ocr_synth.npz", device)
+    char, _, ck = load_char_ocr_npz("checkpoints/char_ocr_synth.npz", device)
+    names = ck.names
     return PlateRecognizer(
         load_plate_detector("checkpoints/plate_det640.npz", device), char,
         load_lpsr("checkpoints/lpsr_synth_glare/best_model.npz",

@@ -67,7 +67,8 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     card = _timing.card(dev)
-    char, names = load_char_ocr_npz("checkpoints/char_ocr_synth.npz", dev)
+    char, _, ck = load_char_ocr_npz("checkpoints/char_ocr_synth.npz", dev)
+    names = ck.names
     rec = PlateRecognizer(
         load_plate_detector("checkpoints/plate_det640.npz", dev), char,
         load_lpsr("checkpoints/lpsr_synth_glare/best_model.npz", device=dev),

@@ -41,13 +41,12 @@ class _Predictions(torch.nn.Module):
     """A detector's decoded predictions (B, N, 5+nc) as float32, NMS
     excluded (the reference's detector export contract)."""
 
-    def __init__(self, model: torch.nn.Module, dtype: torch.dtype):
+    def __init__(self, model: torch.nn.Module):
         super().__init__()
         self.model = model
-        self.dtype = dtype
 
     def forward(self, x):
-        return self.model(x.to(self.dtype), decode=True)[0].float()
+        return self.model(x, decode=True)[0].float()
 
 
 def export_fn(fn: Callable, example_args: Sequence[Any], path: str) -> None:
@@ -80,11 +79,11 @@ def export_lpsr(lpsr, path: str, batch: int = 16, hw=(32, 192), cfg=None,
     export_fn(lpsr.eval(), (x,), path)
 
 
-def export_detector(model, path: str, batch: int = 1, hw=(1280, 1280),
-                    dtype: torch.dtype = torch.float32) -> None:
+def export_detector(model, path: str, batch: int = 1,
+                    hw=(1280, 1280)) -> None:
     """Export a loaded YOLO model's forward with the decode included and
     NMS excluded, (batch, H, W, 3) float32 -> (batch, N, 5+nc) float32, on
-    the model's device, computing in ``dtype``.  An int8 model raises (its
+    the model's device.  An int8 model raises (its
     convolutions are the I1/I2 kernels)."""
     from lpr_tpu_torch.models.yolo import Detect
     x = torch.zeros((batch, hw[0], hw[1], 3), dtype=torch.float32,
@@ -94,7 +93,7 @@ def export_detector(model, path: str, batch: int = 1, hw=(1280, 1280),
     heads = [m for m in model.modules() if isinstance(m, Detect)]
     tables = [dict(h._tables) for h in heads]
     try:
-        export_fn(_Predictions(model.eval(), dtype), (x,), path)
+        export_fn(_Predictions(model.eval()), (x,), path)
     finally:
         for h, t in zip(heads, tables):
             h._tables = t

@@ -9,6 +9,7 @@ state-dict names by the port's name table
 (:func:`lpr_tpu_torch.models.yolo.torch_names`); the JAX loader reads the
 same file independently, so a wrong name fails there."""
 
+import contextlib
 import sys
 import types
 
@@ -27,7 +28,7 @@ _BN = (("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
 
 def reference_modules():
     """``{module name: module}`` of stand-in classes under the reference's
-    names; register them with ``monkeypatch.setitem(sys.modules, ...)``."""
+    names; register them with :func:`registered`."""
     common = types.ModuleType("models.common")
     yolo = types.ModuleType("models.yolo")
     for mod, names in ((common, _COMMON), (yolo, ("Model", "Detect"))):
@@ -37,6 +38,21 @@ def reference_modules():
     pkg = types.ModuleType("models")
     pkg.common, pkg.yolo = common, yolo
     return {"models": pkg, "models.common": common, "models.yolo": yolo}
+
+
+@contextlib.contextmanager
+def registered(mods):
+    """``mods`` in ``sys.modules`` for the ``with`` body; whatever stood
+    under those names before (or nothing) is put back afterwards, so the
+    loaders read the file without them."""
+    saved = {k: sys.modules[k] for k in mods if k in sys.modules}
+    sys.modules.update(mods)
+    try:
+        yield
+    finally:
+        for k in mods:
+            sys.modules.pop(k, None)
+        sys.modules.update(saved)
 
 
 def torch_state_dict(model, state):
@@ -108,7 +124,7 @@ def _tree(mods, yaml_rows, sd, anchors, strides):
     return root
 
 
-def write_yolo_pt(path, monkeypatch, spec, strides, state, names, *,
+def write_yolo_pt(path, spec, strides, state, names, *,
                   anchors=None, half=None, bf16=None, ema=False):
     """Write ``state`` for the port's build of ``spec`` as a YOLOv5 ``.pt``
     at ``path``: the Model's ``yaml`` (the spec's rows), ``names``,
@@ -117,10 +133,7 @@ def write_yolo_pt(path, monkeypatch, spec, strides, state, names, *,
     float64) and an ``ema`` entry (None, or with ``ema`` the same Model,
     which the loaders prefer).  The torch names ``half`` and ``bf16`` are
     stored as float16 and bfloat16.  The stand-in classes are registered
-    with ``monkeypatch`` (a test's fixture; None: a MonkeyPatch of its own,
-    undone here) and taken out again once the file is written."""
-    import pytest
-
+    only while the file is written."""
     model = tyolo.build_yolo(spec, strides=strides, ckpt_anchors=anchors)
     sd = torch_state_dict(model, state)
     if half:
@@ -130,10 +143,7 @@ def write_yolo_pt(path, monkeypatch, spec, strides, state, names, *,
     rows = [[r[0] if isinstance(r[0], int) else list(r[0]), r[1], r[2],
              list(r[3])] for r in list(spec.backbone) + list(spec.head)]
     mods = reference_modules()
-    mp = monkeypatch or pytest.MonkeyPatch()
-    for k, v in mods.items():
-        mp.setitem(sys.modules, k, v)
-    try:
+    with registered(mods):
         m = _tree(mods, rows, sd, model.anchors, strides)
         m.yaml = {"nc": spec.nc, "depth_multiple": spec.depth_multiple,
                   "width_multiple": spec.width_multiple,
@@ -144,9 +154,4 @@ def write_yolo_pt(path, monkeypatch, spec, strides, state, names, *,
         torch.save({"epoch": 3, "best_fitness": np.float64(0.25),
                     "model": m, "ema": m if ema else None, "updates": 12,
                     "optimizer": None}, path)
-    finally:        # the loaders must read the file without them
-        for k in mods:
-            mp.delitem(sys.modules, k)
-        if monkeypatch is None:
-            mp.undo()
     return path

@@ -176,7 +176,8 @@ def test_render_panel_matches_jax_outside_the_text():
 @pytest.fixture(scope="module")
 def port_ev():
     """The port's evaluator on the CPU with the repo's checkpoints."""
-    char, names = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    char, _, ck = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    names = ck.names
     return OcrEvaluator(char, tlpsr.load_lpsr(LPSR, device="cpu"),
                         names=names, device="cpu")
 
@@ -370,7 +371,7 @@ def test_cli_run_refuses_detector_weights_that_are_not_npz(d_weights, err):
 
 
 @pytest.mark.parametrize("app", ["run", "evaluate"])
-def test_cli_run_and_evaluate_load_a_char_pt(app, tmp_path, monkeypatch):
+def test_cli_run_and_evaluate_load_a_char_pt(app, tmp_path):
     """cli/run's --r-weights and cli/evaluate's --ocr-weights take a char.pt
     (written by the test, tests/pt_fixture.py): the app's char model holds
     the weights of the JAX load_char_ocr of the same file (every buffer
@@ -380,7 +381,7 @@ def test_cli_run_and_evaluate_load_a_char_pt(app, tmp_path, monkeypatch):
 
     from .test_torch_pt_import import CHAR_NAMES, _char_pt
 
-    path = _char_pt(tmp_path, monkeypatch)
+    path = _char_pt(tmp_path)
     if app == "run":
         rec = cli_run.build_recognizer(cli_run.parse_args(
             ["--source", "x", "--d-weights", PLATE, "--r-weights", path,
@@ -527,6 +528,6 @@ def test_clis_default_to_the_card(cli, argv, monkeypatch):
     assert cli.parse_args(argv).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(argv)
-    char, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    char, _, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         OcrEvaluator(char, tlpsr.load_lpsr(LPSR, device="cpu"))

@@ -222,7 +222,8 @@ def evaluators():
                           strides=(8,))
     jev = jharness.OcrEvaluator(cm, _npz_params(CHAR, cm.init), _jax_lpsr(),
                                 names=list(jchars.OCR_CLASSES))
-    char, tnames = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    char, _, ck = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    tnames = ck.names
     tev = tharness.OcrEvaluator(char, tlpsr.load_lpsr(LPSR, device="cpu"),
                                 names=tnames, device="cpu")
     return jev, tev
@@ -289,7 +290,7 @@ def test_evaluate_folder_matches_evaluate_arrays(evaluators, reports):
 
 
 def test_evaluator_refuses_a_foreign_lpsr_config():
-    char, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    char, _, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
     sr = tlpsr.load_lpsr(LPSR, device="cpu")
     with pytest.raises(ValueError, match="lpsr_cfg"):
         tharness.OcrEvaluator(char, sr, tlpsr.LPSRConfig(num_blocks=2),
@@ -414,7 +415,8 @@ def test_evaluator_on_card_matches_cpu():
             gts.append(os.path.splitext(f)[0].upper())
     reps = {}
     for dev in ("cuda", "cpu"):
-        char, names = tyolo.load_char_ocr_npz(CHAR, device=dev)
+        char, _, ck = tyolo.load_char_ocr_npz(CHAR, device=dev)
+        names = ck.names
         ev = tharness.OcrEvaluator(char, tlpsr.load_lpsr(LPSR, device=dev),
                                    names=names, device=dev)
         before = lpsr_fused.launches

@@ -66,7 +66,7 @@ def test_pt2_round_trip_equals_the_forward(which, tmp_path):
         x = torch.from_numpy(rng.rand(2, 32, 192, 3).astype(np.float32))
         want = model(x)
     else:
-        model, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+        model, _, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
         tprog.export_detector(model, path, batch=1, hw=(64, 64))
         x = torch.from_numpy(rng.rand(1, 64, 64, 3).astype(np.float32))
         with torch.inference_mode():
@@ -89,7 +89,7 @@ def test_export_refuses_a_trace_that_reaches_a_kernel(tmp_path):
     with pytest.raises(RuntimeError, match="yolo_front .*torch.export"):
         tprog.export_fn(lambda v: plate(v, front=front), (x,),
                         str(tmp_path / "k1.pt2"))
-    char, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    char, _, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
     tyolo.quantize_yolo(char)
     with pytest.raises(RuntimeError, match="act_amax|quantize_act"):
         tprog.export_detector(char, str(tmp_path / "i8.pt2"), hw=(64, 64))
@@ -110,8 +110,7 @@ def _check_sr(out, fmt):
 @pytest.mark.parametrize("model_type,fmt", [
     ("sr", "onnx"), ("sr", "torch"), ("sr", "npz"), ("sr", "pt2"),
     ("ocr", "onnx"), ("ocr", "npz"), ("ocr", "pt2")])
-def test_cli_export_writes_each_format(model_type, fmt, tmp_path,
-                                       monkeypatch, capsys):
+def test_cli_export_writes_each_format(model_type, fmt, tmp_path, capsys):
     """cli/export with --device cpu, the format from the output's
     extension: sr from the npz (read back equal to it, or a program of
     (1, 32, 192, 3)); ocr from a char.pt (the ONNX graph's predictions
@@ -119,7 +118,7 @@ def test_cli_export_writes_each_format(model_type, fmt, tmp_path,
     state, a program at --size 64 64, (1, 128, 41))."""
     ext = {"onnx": ".onnx", "torch": ".pth", "npz": ".npz", "pt2": ".pt2"}
     out = str(tmp_path / "out" / f"m{ext[fmt]}")
-    weights = LPSR if model_type == "sr" else _char_pt(tmp_path, monkeypatch)
+    weights = LPSR if model_type == "sr" else _char_pt(tmp_path)
     argv = ["--model-type", model_type, "--weights", weights, "--output",
             out, "--device", "cpu"]
     if fmt == "pt2" and model_type == "ocr":

@@ -94,8 +94,8 @@ def test_detector_front_hook_equals_unfused_layers(frames):
 
 
 def test_front_pack_and_geometry_reject_what_the_kernel_cannot_take():
-    char, _ = tyolo.load_char_ocr_npz("checkpoints/char_ocr_synth.npz",
-                                      device="cpu")
+    char, _, _ = tyolo.load_char_ocr_npz("checkpoints/char_ocr_synth.npz",
+                                         device="cpu")
     with pytest.raises(ValueError):
         kf.front_pack(char)
     assert kf.front_geom(736, 1280) == (184, 320)

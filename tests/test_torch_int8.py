@@ -482,7 +482,8 @@ def _jax_recognizer(det_hw, plate_params=None, **cfg_kw):
 
 
 def _port_recognizer(det_hw, **cfg_kw):
-    tchar, names = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    tchar, _, ck = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    names = ck.names
     return trec.PlateRecognizer(
         tyolo.load_plate_detector(PLATE, device="cpu"), tchar,
         tlpsr.load_lpsr(LPSR, device="cpu"),

@@ -21,6 +21,7 @@ import lpr_tpu_torch
 for m in pkgutil.walk_packages(lpr_tpu_torch.__path__, "lpr_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import tests.pt_fixture
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "lpr_tpu" or n.startswith(("lpr_tpu.", "jax", "ml_dtypes", "PIL"))))
 print("BAD", bad)
@@ -34,8 +35,9 @@ def _run(args, cwd, **env):
 
 
 def test_port_and_chip_smoke_import_no_jax_lpr_tpu_or_pil():
-    """Every module of the port, and chip_smoke.py, imported with jax,
-    ml_dtypes and PIL unimportable: none of them, nor lpr_tpu, loads."""
+    """Every module of the port, chip_smoke.py and the .pt writer it
+    imports (tests/pt_fixture.py), imported with jax, ml_dtypes and PIL
+    unimportable: none of them, nor lpr_tpu, loads."""
     r = _run(["-c", _PROBE], ROOT, PYTHONPATH=ROOT)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
@@ -53,8 +55,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         yolo.load_plate_detector("checkpoints/plate_det640.npz")
     with pytest.raises(RuntimeError, match="CUDA"):
         lpsr.load_lpsr("checkpoints/lpsr_synth_glare/best_model.npz")
-    char, _ = yolo.load_char_ocr_npz("checkpoints/char_ocr_synth.npz",
-                                     device="cpu")
+    char, _, _ = yolo.load_char_ocr_npz("checkpoints/char_ocr_synth.npz",
+                                        device="cpu")
     plate = yolo.load_plate_detector("checkpoints/plate_det640.npz",
                                      device="cpu")
     sr = lpsr.load_lpsr("checkpoints/lpsr_synth_glare/best_model.npz",

@@ -76,7 +76,7 @@ def test_mid_pack_equals_detector_layers_3_4():
 
 
 def test_mid_pack_and_geometry_reject_what_the_kernel_cannot_take():
-    char, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    char, _, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
     with pytest.raises(ValueError):
         km.mid_pack(char)
     assert km.mid_geom(184, 320) == (92, 160)

@@ -31,7 +31,8 @@ def test_yolo_raw_output_matches_jax(which):
         shape = (1, 128, 256, 3)
     else:
         jm, jp, _ = torch_ref.char()
-        tm, names = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+        tm, _, ck = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+        names = ck.names
         assert len(names) == 36
         np.testing.assert_array_equal(tm.anchors, jm.anchors)
         shape = (1, 128, 128, 3)

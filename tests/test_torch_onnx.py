@@ -28,7 +28,7 @@ from .torch_ref import CHAR, LPSR, PLATE
 GRAPHS = ["lpsr", "char", "plate", "yolov5n .pt"]
 
 
-def _emit(which, tmp_path, monkeypatch):
+def _emit(which, tmp_path):
     """Both emitters on the same weights: (port path, JAX path, port model
     or None, its flat state).  The char OCR (Focus, SPP, C3TR) and the
     plate detector (v6 stem, SPPF) from their npz (batch norm under bn/*,
@@ -42,7 +42,7 @@ def _emit(which, tmp_path, monkeypatch):
             k, jlpsr.LPSRConfig())), jp_)
         return tp, jp_, None, state
     if which == "yolov5n .pt":
-        path = _yolov5n_pt(tmp_path, monkeypatch)
+        path = _yolov5n_pt(tmp_path)
         tm, state, _ = tyolo.load_yolo_torch(path, device="cpu")
         jm, jparams, _ = jyolo.load_yolo_torch(path)
         hw = (64, 96)
@@ -66,26 +66,25 @@ def _emit(which, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("which", GRAPHS)
-def test_onnx_emit_writes_the_jax_emitters_bytes(which, tmp_path,
-                                                 monkeypatch):
+def test_onnx_emit_writes_the_jax_emitters_bytes(which, tmp_path):
     """The port's emitter, from the flat state (the plain k6/s2 stem, the
     batch norm folded at emit time where the state keeps it), writes the
     JAX emitter's file byte for byte."""
-    tp, jp_, _, _ = _emit(which, tmp_path, monkeypatch)
+    tp, jp_, _, _ = _emit(which, tmp_path)
     with open(tp, "rb") as a, open(jp_, "rb") as b:
         got, ref = a.read(), b.read()
     assert len(got) > 10_000 and got == ref
 
 
 @pytest.mark.parametrize("which", ["lpsr", "char", "yolov5n .pt"])
-def test_run_onnx_matches_jax_and_the_model(which, tmp_path, monkeypatch):
+def test_run_onnx_matches_jax_and_the_model(which, tmp_path):
     """The port's executor on an emitted graph against the JAX executor
     and against the port's own forward, float32: LPSR (at 32x192 and at
     30x190, the dynamic pad to a multiple of 4, whose output both keep at
     the padded size) within 1e-5; the detectors' predictions within 1e-5,
     relative for the pixel coordinates (boxes reach ~100 px, where 1e-5 is
     ~1 float32 ulp)."""
-    tp, _, tm, _ = _emit(which, tmp_path, monkeypatch)
+    tp, _, tm, _ = _emit(which, tmp_path)
     if tm is None:
         lpsr = tlpsr.load_lpsr(LPSR, device="cpu")
         tm = lambda v, decode: lpsr(v)            # noqa: E731

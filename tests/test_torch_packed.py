@@ -148,7 +148,8 @@ def test_packed_slice_matches_jax_recognizer():
     CPU) on two 180x320 frames at 192x320, a pad-only letterbox: boxes
     within 0.5 px, strings exact (compare's bounds)."""
     jr, _ = build_pair((192, 320))
-    tchar, names = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    tchar, _, ck = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    names = ck.names
     tr = trec.PlateRecognizer(
         tyolo.load_plate_detector(PLATE, device="cpu"), tchar,
         tlpsr.load_lpsr(LPSR, device="cpu"),

@@ -31,7 +31,7 @@ from .torch_ref import CHAR
 CHAR_NAMES = [f"c{i}" for i in range(36)]
 
 
-def _char_pt(tmp_path, monkeypatch, mixed=True, **kw):
+def _char_pt(tmp_path, mixed=True, **kw):
     """checkpoints/char_ocr_synth.npz as a char.pt (Focus, SPP, C3TR); with
     ``mixed`` its stem conv in float16 and a batch-norm scale in
     bfloat16."""
@@ -40,11 +40,11 @@ def _char_pt(tmp_path, monkeypatch, mixed=True, **kw):
         kw.update(half="model.0.conv.conv.weight",
                   bf16="model.2.cv1.bn.weight")
     return write_yolo_pt(
-        str(tmp_path / "char.pt"), monkeypatch, tyolo.char_ocr_spec(), (8,),
+        str(tmp_path / "char.pt"), tyolo.char_ocr_spec(), (8,),
         state, CHAR_NAMES, anchors=side["__anchors__"], **kw)
 
 
-def _yolov5n_pt(tmp_path, monkeypatch, seed=0, name="plate.pt", **kw):
+def _yolov5n_pt(tmp_path, seed=0, name="plate.pt", **kw):
     """A seeded random yolov5n (nc=11, the plate detector's head; the v6
     stem, SPPF, three scales), one head bias in float16 and the stem's
     batch-norm shift in bfloat16."""
@@ -52,7 +52,7 @@ def _yolov5n_pt(tmp_path, monkeypatch, seed=0, name="plate.pt", **kw):
     state = params_from_jax(rand_params(jyolo.build_yolo(
         spec, strides=(8, 16, 32)), seed=seed))
     return write_yolo_pt(
-        str(tmp_path / name), monkeypatch, spec, (8, 16, 32), state,
+        str(tmp_path / name), spec, (8, 16, 32), state,
         [f"p{i}" for i in range(11)], half="model.24.m.1.bias",
         bf16="model.0.bn.bias", **kw)
 
@@ -70,12 +70,12 @@ def _assert_state_equal(state, jparams):
 
 @pytest.mark.parametrize("fuse", [True, False])
 @pytest.mark.parametrize("which", sorted(MAKERS))
-def test_pt_state_equals_jax_import(which, fuse, tmp_path, monkeypatch):
+def test_pt_state_equals_jax_import(which, fuse, tmp_path):
     """The port's flat state of a .pt equals the flattened params of the
     JAX load_yolo_torch, key for key and bit for bit (batch norm folded
     with fuse, kept under bn/* without); the spec, class names, strides and
     anchors are the JAX loader's."""
-    path = MAKERS[which](tmp_path, monkeypatch)
+    path = MAKERS[which](tmp_path)
     model, state, ck = tyolo.load_yolo_torch(path, fuse=fuse, device="cpu")
     jm, jp, jck = jyolo.load_yolo_torch(path, fuse=fuse)
     _assert_state_equal(state, jp)
@@ -90,12 +90,12 @@ def test_pt_state_equals_jax_import(which, fuse, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("which", sorted(MAKERS))
-def test_pt_model_head_matches_jax(which, tmp_path, monkeypatch):
+def test_pt_model_head_matches_jax(which, tmp_path):
     """The .pt-imported model's raw head and decoded predictions on one
     seeded (2, 64, 64, 3) input match the JAX model on the same file:
     within 1e-4 (float32 rounding through the layers; the zoo's parity
     bound), the predictions (pixels) within 1e-4 + 1e-5 relative."""
-    path = MAKERS[which](tmp_path, monkeypatch)
+    path = MAKERS[which](tmp_path)
     model, _, _ = tyolo.load_yolo_torch(path, device="cpu")
     jm, jp, _ = jyolo.load_yolo_torch(path)
     x = np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32)
@@ -110,8 +110,7 @@ def test_pt_model_head_matches_jax(which, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(MODULE_ROWS))
-def test_pt_import_of_each_builder_module_equals_jax(name, tmp_path,
-                                                      monkeypatch):
+def test_pt_import_of_each_builder_module_equals_jax(name, tmp_path):
     """Every builder module the two detectors do not use (Focus, DWConv,
     Bottleneck, BottleneckCSP with its standalone batch norm, C3SPP,
     C3Ghost, GhostConv, GhostBottleneck at stride 1 and 2, Contract,
@@ -121,15 +120,15 @@ def test_pt_import_of_each_builder_module_equals_jax(name, tmp_path,
     spec, strides = _module_spec(name)
     state = params_from_jax(rand_params(jyolo.build_yolo(spec,
                                                          strides=strides)))
-    path = write_yolo_pt(str(tmp_path / "m.pt"), monkeypatch, spec, strides,
-                         state, ["a", "b", "c"], ema=True)
+    path = write_yolo_pt(str(tmp_path / "m.pt"), spec, strides, state,
+                         ["a", "b", "c"], ema=True)
     for fuse in (True, False):
         _, got, ck = tyolo.load_yolo_torch(path, fuse=fuse, device="cpu")
         _assert_state_equal(got, jyolo.load_yolo_torch(path, fuse=fuse)[1])
         assert ck.model is ck.raw["ema"]
 
 
-def test_pt_ensemble_matches_jax(tmp_path, monkeypatch):
+def test_pt_ensemble_matches_jax(tmp_path):
     """A list of two .pt files gives a YoloEnsemble whose predictions (the
     two models' concatenated) match the JAX YoloEnsemble's within 1e-4 +
     1e-5 relative, with the last checkpoint's names and the coarsest
@@ -140,7 +139,7 @@ def test_pt_ensemble_matches_jax(tmp_path, monkeypatch):
         state = params_from_jax(rand_params(
             jyolo.build_yolo(spec, strides=strides), seed=seed))
         paths.append(write_yolo_pt(str(tmp_path / f"m{seed}.pt"),
-                                   monkeypatch, spec, strides, state,
+                                   spec, strides, state,
                                    [f"s{seed}{i}" for i in range(3)]))
     ens, states, ck = tyolo.load_yolo_torch(paths, device="cpu")
     jens, jps, jck = jyolo.load_yolo_torch(paths)
@@ -204,14 +203,13 @@ def test_unpickler_runs_no_pickled_code(what, tmp_path):
     assert not flag.exists()
 
 
-def test_numpy2_scalars_are_stubs_as_in_the_jax_reader(tmp_path,
-                                                        monkeypatch):
+def test_numpy2_scalars_are_stubs_as_in_the_jax_reader(tmp_path):
     """numpy 2 pickles a YOLOv5 checkpoint's best_fitness (np.float64) as
     numpy._core.multiarray.scalar, which neither reader allows: both
     return a Stub of that name (the JAX allow-list names numpy.core only);
     a numpy-1 scalar pickle (numpy.core.multiarray.scalar) decodes in
     both."""
-    path = _char_pt(tmp_path, monkeypatch)
+    path = _char_pt(tmp_path)
     got = tckpt.load_checkpoint(path)["best_fitness"]
     ref = jckpt.load_checkpoint(path)["best_fitness"]
     assert isinstance(got, tckpt.Stub) and isinstance(ref, jckpt.Stub)
@@ -249,14 +247,14 @@ def test_load_state_dict_reads_what_the_jax_reader_reads(tmp_path):
         np.testing.assert_array_equal(got[k], want, err_msg=k)
 
 
-def test_load_char_detector_and_ocr_take_a_pt(tmp_path, monkeypatch):
+def test_load_char_detector_and_ocr_take_a_pt(tmp_path):
     """load_char_ocr and load_char_detector on a char.pt of the npz's
     float32 weights give the npz's model: its raw head bit for bit (the
     .pt's batch norm folded at import, the npz's at load, by one function)
     with the file's names, and its detections on a plate crop."""
     from lpr_tpu_torch import imageio
 
-    path = _char_pt(tmp_path, monkeypatch, mixed=False)
+    path = _char_pt(tmp_path, mixed=False)
     model, _, ck = tyolo.load_char_ocr(path, device="cpu")
     npz_model, npz_state, npz_ck = tyolo.load_char_ocr(CHAR, device="cpu")
     assert ck.names == CHAR_NAMES and len(npz_ck.names) == 36

@@ -59,7 +59,8 @@ def build_pair(det_hw, **cfg_kw):
         plate, pp, char, cp, torch_ref.lpsr(), jlpsr.LPSRConfig(),
         jrec.PipelineConfig(det_hw=det_hw, dtype=jnp.float32, **cfg_kw),
         char_names=names)
-    tchar, names = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    tchar, _, ck = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    names = ck.names
     tr = trec.PlateRecognizer(
         tyolo.load_plate_detector(PLATE, device="cpu"), tchar,
         tlpsr.load_lpsr(LPSR, device="cpu"),
@@ -140,7 +141,7 @@ def test_empty_plate_slots_are_finite_in_the_port():
 
 
 def test_recognizer_rejects_what_the_front_kernel_cannot_take():
-    char, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    char, _, _ = tyolo.load_char_ocr_npz(CHAR, device="cpu")
     plate = tyolo.load_plate_detector(PLATE, device="cpu")
     lpsr = tlpsr.load_lpsr(LPSR, device="cpu")
     with pytest.raises(ValueError):
@@ -175,7 +176,8 @@ def test_slice_with_a_small_lpsr_configuration_matches_jax():
         plate, pp, char, cp, params, jcfg,
         jrec.PipelineConfig(det_hw=det_hw, dtype=jnp.float32),
         char_names=names)
-    tchar, names = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    tchar, _, ck = tyolo.load_char_ocr_npz(CHAR, device="cpu")
+    names = ck.names
     tr = trec.PlateRecognizer(
         tyolo.load_plate_detector(PLATE, device="cpu"), tchar,
         tlpsr.LPSR(params_from_jax(params), tcfg),

@@ -18,8 +18,9 @@ TIMEOUT_S = 120
 
 @pytest.fixture(scope="module")
 def rec():
-    char, names = tyolo.load_char_ocr_npz("checkpoints/char_ocr_synth.npz",
+    char, _, ck = tyolo.load_char_ocr_npz("checkpoints/char_ocr_synth.npz",
                                           device="cpu")
+    names = ck.names
     return trec.PlateRecognizer(
         tyolo.load_plate_detector("checkpoints/plate_det640.npz",
                                   device="cpu"),
