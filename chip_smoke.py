@@ -137,11 +137,29 @@ Phases, each printing one line with its elapsed seconds:
    ONNX_RUN_TOL); export_lpsr and export_detector (the .pt detector at
    736x1280) to .pt2 programs, loaded back and run on the card against the
    forwards (within PT2_TOL).
-11. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
+11. train — the enhancement stage's training on the card (temporary files
+   only): the repo's 16 plate crops (tests/fixtures/real_plates*) at
+   64x384, repeated to 32, degraded by LPDegradation with draws sampled on
+   the card, and the same draws applied on the CPU (within DEG_TOL), ms a
+   batch; the LPSR trainer warm-started from lpsr_synth_glare at batch 128
+   of degraded crops, one step on the card with TF32 off against the same
+   step on the CPU (loss, gradients and every weight, TRAIN_*), then 20
+   steps timed by bench_train_step.bench_lpsr (median ms and images/s,
+   TF32 off and on), then validate on two batches of 64, which must launch
+   K2's float32 instance once a batch, its mean PSNR and per-image PSNR
+   within PSNR_TOL_DB of LPSR.forward's on the trained leaves; the
+   CycleGAN trainer at batch 4 (9 blocks, base 64, the 64-512 PatchGAN),
+   one generator step against the CPU's (its gradients, on each side,
+   against float64 on the CPU: CG_GRAD_K), two full steps timed (losses
+   finite); and the create_lr (--gan-weights cyclegan_real_g.npz),
+   train_lpsr and train_cyclegan CLIs for one epoch on 8 crops, whose
+   checkpoints must load in the flat layout.  Its K2 launches are printed
+   on its line, not counted in the kernels line.
+12. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
    requests, max_batch 8), with frames, with the pool, over HTTP and, where
    host_decode built, with files: its JSON lines (client frames/s, latency
    p50/p99, mean batch, the card).
-12. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
+13. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
    with BENCH_PACKED=1 and =0, and BENCH_PACKED=1 with BENCH_INT8=1 (which
    must launch I1's two kernels and I2): its JSON lines (frames/s, flops_per_frame,
    mfu_pct against the bf16 peak, the card).
@@ -719,6 +737,399 @@ def export_phase(card, counts_to_zero, counts):
         note["pt2 err"] = errs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return note
+
+
+# The train phase: the repo's plate crops, degraded from the HR size the
+# LR tool uses (twice 32x192) in batches of 32; LPSR steps at batch 128 and
+# validation in batches of 64 (K2's float32 instance); CycleGAN steps at
+# the CLI's batch of 4.
+TRAIN_CROPS = EVAL_FOLDERS
+TRAIN_HR_HW = (64, 384)
+DEG_BATCH = 32
+LPSR_TRAIN_BATCH = 128
+LPSR_VAL_BATCH = 64
+LPSR_TIMED_STEPS = 20
+CG_BATCH = 4
+# The same draws applied on the card and on the CPU (float32, TF32 off):
+# the LR batches' largest difference on [0, 1].
+DEG_TOL = 1e-5
+# One training step on the card against the same step on the CPU (TF32
+# off): the loss within TRAIN_LOSS_RTOL; each weight within
+# TRAIN_PARAM_TOL plus what the gradients' own difference moves a first
+# Adam step, lr * g / (|g| + eps): at most lr * |g_card - g_cpu| / (min |g|
+# + eps) between two gradients of one sign, 2 lr between two of opposite
+# signs.  The gradients (read from Adam's first moment) in norm, tensor by
+# tensor:
+# - LPSR: within TRAIN_GRAD_RTOL of the CPU's, ||g_card - g_cpu|| /
+#   ||g_cpu|| (elementwise they differ more: a pre-activation within
+#   rounding of 0 takes the other side of a ReLU);
+# - the CycleGAN generator: float32 rounding alone moves its gradients by
+#   a few 1e-3 in norm (the CPU's float32 against float64 on the same
+#   batch, printed each run), so both sides are held to a float64
+#   reference on the CPU, the card's worst error there within CG_GRAD_K
+#   times the CPU's.  The biases that InstanceNorm follows are left out:
+#   their true gradient is zero, what is left is rounding noise.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-2
+TRAIN_PARAM_TOL = 1e-6
+CG_GRAD_K = 4
+# Per-image PSNR of validate (K2 float32) against LPSR.forward (float32,
+# TF32 off), in dB.
+PSNR_TOL_DB = 0.01
+
+
+def _adam_grads(opt, params, b1):
+    """{key: the first step's gradient, on the CPU} from Adam's first
+    moment, (1 - b1) g."""
+    return {k: opt.state[p]["exp_avg"].cpu() / (1 - b1)
+            for k, p in params.items()}
+
+
+def _norm_err(got, ref, skip=lambda k: False):
+    """The worst ||got - ref|| / ||ref|| over the tensors, and where (with
+    that tensor's largest elementwise error over its largest |ref|)."""
+    err, at = 0.0, None
+    for k, r in ref.items():
+        d = got[k].double() - r.double()
+        if skip(k) or float(r.norm()) == 0:
+            continue
+        e = float(d.norm() / r.double().norm())
+        if e > err:
+            err, at = e, (f"{k} (elementwise max err / max|g| "
+                          f"{float(d.abs().max() / r.abs().max())})")
+    return err, at
+
+
+def _step_errors(card_params, card_opt, cpu_params, cpu_opt, lr, b1,
+                 noise=lambda k: False):
+    """One Adam step on the card against the CPU's, from the same weights
+    (see TRAIN_GRAD_RTOL): (the largest norm-wise gradient error, the
+    largest weight error over its bound, the largest weight error, where
+    the largest gradient error is and its largest elementwise error over
+    the tensor's largest |g|)."""
+    import torch
+
+    eps = cpu_opt.defaults["eps"]
+    g_cpu = _adam_grads(cpu_opt, cpu_params, b1)
+    g_card = _adam_grads(card_opt, card_params, b1)
+    g_err, worst = _norm_err(g_card, g_cpu, noise)
+    w_ratio = w_err = 0.0
+    for k, p in cpu_params.items():
+        g_p, g_c = g_cpu[k], g_card[k]
+        dg = (g_c - g_p).abs()
+        same = (g_c * g_p) > 0
+        lo = torch.minimum(g_c.abs(), g_p.abs())
+        bound = TRAIN_PARAM_TOL + torch.where(
+            same, lr * dg / (lo + eps), torch.full_like(dg, 2 * lr))
+        d = (card_params[k].detach().cpu() - p.detach()).abs()
+        w_ratio = max(w_ratio, float((d / bound).max()))
+        w_err = max(w_err, float(d.max()))
+    return g_err, w_ratio, w_err, worst
+
+
+def _generator_grads_f64(gs, ds, real_a, real_b):
+    """The CycleGAN generator step's gradients in float64 on the CPU from
+    the flat states ``gs`` ({"ab", "ba"}) and ``ds``: {"ab": {key: g},
+    "ba": ...}."""
+    import torch
+
+    from lpr_tpu_torch.train.cyclegan import CycleGANTrainer
+
+    t = CycleGANTrainer(device="cpu")
+    st = t.state_from(gs, ds)
+    for which in ("ab", "ba"):
+        st["g"][which] = {k: v.detach().double().requires_grad_(True)
+                          for k, v in st["g"][which].items()}
+        t.gens[which] = t.gens[which].double()
+    st["d"] = {which: {k: v.detach().double() for k, v in d.items()}
+               for which, d in st["d"].items()}
+    loss, _ = t.g_loss(st, real_a.cpu().double(), real_b.cpu().double())
+    keys = [(w, k) for w in ("ab", "ba") for k in st["g"][w]]
+    grads = torch.autograd.grad(loss, [st["g"][w][k] for w, k in keys])
+    out = {"ab": {}, "ba": {}}
+    for (w, k), g in zip(keys, grads):
+        out[w][k] = g
+    return out
+
+
+def train_phase(card, counts_to_zero, counts, dev="cuda"):
+    """Phase train: the LR degradation on the card against the CPU, the
+    LPSR trainer (a step against the CPU's, timed steps, validate through
+    K2's float32 instance), the CycleGAN trainer (a generator step against
+    the CPU's, two timed steps), and the create_lr, train_lpsr and
+    train_cyclegan CLIs in a temporary directory; returns a note for the
+    phase line.  ``dev="cpu"`` (with smaller batches) rehearses it where
+    there is no card."""
+    import contextlib
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lpr_tpu_torch import imageio, native
+    from lpr_tpu_torch.cli import create_lr as cli_create_lr
+    from lpr_tpu_torch.cli import train_cyclegan as cli_train_cg
+    from lpr_tpu_torch.cli import train_lpsr as cli_train_lpsr
+    from lpr_tpu_torch.data.datasets import luma_u8
+    from lpr_tpu_torch.data.degradation import LPDegradation
+    from lpr_tpu_torch.kernels import lpsr as kl
+    from lpr_tpu_torch.models.cyclegan import (discriminator_init,
+                                               generator_init)
+    from lpr_tpu_torch.tools import _timing, bench_train_step
+    from lpr_tpu_torch.train.cyclegan import CycleGANTrainer
+    from lpr_tpu_torch.train.lpsr import LPSRTrainer, psnr
+    from lpr_tpu_torch.weights.checkpoint import load_state
+
+    note = {}
+
+    @contextlib.contextmanager
+    def tf32(on):
+        """cuDNN's and cuBLAS's TF32 set to ``on``, restored after."""
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = on
+        torch.backends.cuda.matmul.allow_tf32 = on
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+
+    device = torch.device(dev)
+
+    def wall(fn):
+        _timing.sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _timing.sync(device)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # 1. degrade: the crops at the HR size, repeated to 32, the draws
+    # sampled on the card, applied there and on the CPU
+    t0 = time.perf_counter()
+    files = sorted(p for f in TRAIN_CROPS
+                   for p in glob.glob(os.path.join(f, "*.png")))
+    crops = [imageio.read_rgb(p) for p in files]
+    hr_u8 = np.stack([native.resize_pil_bicubic(c, TRAIN_HR_HW)
+                      for c in crops])
+    reps = -(-DEG_BATCH // len(crops))
+    hr = torch.from_numpy(np.tile(hr_u8, (reps, 1, 1, 1))[:DEG_BATCH]
+                          .astype(np.float32) / 255.0)
+    hr_card = hr.to(dev)
+    deg = LPDegradation(hr_hw=TRAIN_HR_HW)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with tf32(False), torch.no_grad():
+        draws = deg.sample(gen, DEG_BATCH)
+        lr_card = deg.apply(draws, hr_card)
+        lr_cpu = deg.apply(draws.to("cpu"), hr)
+        deg_err = float((lr_card.cpu() - lr_cpu).abs().max())
+        deg_ms = _timing.event_ms(lambda: deg(gen, hr_card), 20, device)
+    print(f"train degrade: {DEG_BATCH} crops of {TRAIN_HR_HW} from "
+          f"{len(files)} files -> {tuple(lr_card.shape)}, card vs CPU on "
+          f"the card's draws max_abs_err {deg_err} (< {DEG_TOL}); "
+          f"{deg_ms:.3f} ms per batch of {DEG_BATCH} (sample + apply) on "
+          f"{card} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    if not (deg_err < DEG_TOL and bool(torch.isfinite(lr_card).all())):
+        raise AssertionError("the degradation on the card differs from "
+                             "the CPU's on the same draws")
+    note["degrade ms"] = deg_ms
+
+    # 2. LPSR: (LR, HR) batches of 128 from the degradation, HR as the
+    # datasets read it (Pillow's luma at 32x192)
+    t0 = time.perf_counter()
+    rgb = np.stack([native.resize_pil_bilinear(c, LPSR_HW) for c in crops])
+    # image i of each degraded batch of 32 is crop (i % 32) % len(crops)
+    idx = (np.arange(LPSR_TRAIN_BATCH) % DEG_BATCH) % len(crops)
+    with torch.no_grad():
+        lr_b = torch.cat([deg(gen, hr_card) for _ in range(
+            LPSR_TRAIN_BATCH // DEG_BATCH)])
+    hr_b = torch.from_numpy(luma_u8(rgb)[idx][..., None].astype(np.float32)
+                            / 255.0).to(dev)
+    start = load_state(CKPT_LPSR)[0]
+    trainer, twin = LPSRTrainer(device=dev), LPSRTrainer(device="cpu")
+    st, st_cpu = trainer.init(params=start), twin.init(params=start)
+    with tf32(False):
+        st, loss = trainer.step(st, lr_b, hr_b)
+        st_cpu, loss_cpu = twin.step(st_cpu, lr_b.cpu(), hr_b.cpu())
+    loss, loss_cpu = float(loss), float(loss_cpu)
+    g_err, w_ratio, w_err, g_at = _step_errors(
+        st["params"], st["opt"], st_cpu["params"], st_cpu["opt"],
+        trainer.cfg.lr, 0.9)
+    print(f"train lpsr step (batch {LPSR_TRAIN_BATCH}, warm start from "
+          f"{CKPT_LPSR}, TF32 off): loss card {loss} CPU {loss_cpu} "
+          f"(rel < {TRAIN_LOSS_RTOL}); gradients' relative error in norm "
+          f"{g_err} "
+          f"at {g_at} (< {TRAIN_GRAD_RTOL}); weights max_abs_err {w_err}, "
+          f"max err / bound {w_ratio} (<= 1)", flush=True)
+    if not (abs(loss - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)
+            and g_err < TRAIN_GRAD_RTOL and w_ratio <= 1
+            and np.isfinite(loss)):
+        raise AssertionError("the LPSR step on the card differs from the "
+                             "CPU's")
+    step_ms = {}
+    for mode, on in (("fp32", False), ("tf32", True)):
+        with tf32(on):
+            rec = bench_train_step.bench_lpsr(device, LPSR_TIMED_STEPS,
+                                              LPSR_TRAIN_BATCH)
+        step_ms[mode] = rec["step_ms"]
+    print(f"train lpsr step timed (bench_train_step.bench_lpsr: fresh "
+          f"weights, random batches): median of {LPSR_TIMED_STEPS} after "
+          f"{bench_train_step.WARMUP} warm-up, fp32 (TF32 off) "
+          f"{step_ms['fp32']:.3f} ms = "
+          f"{LPSR_TRAIN_BATCH / step_ms['fp32'] * 1e3:.1f} images/s, "
+          f"cuDNN+cuBLAS TF32 {step_ms['tf32']:.3f} ms = "
+          f"{LPSR_TRAIN_BATCH / step_ms['tf32'] * 1e3:.1f} images/s; "
+          f"{rec['flops_per_step']:.4g} FLOP a step (3x the forward) on "
+          f"{card}",
+          flush=True)
+    note["lpsr step ms"] = step_ms
+
+    # validate through K2 float32 after the steps: one launch a batch of
+    # 64; its PSNR against LPSR.forward on the trained leaves (float32,
+    # TF32 off): per image on the weights validate packed, and the mean
+    val = [(lr_b[i:i + LPSR_VAL_BATCH], hr_b[i:i + LPSR_VAL_BATCH])
+           for i in range(0, LPSR_TRAIN_BATCH, LPSR_VAL_BATCH)]
+    with tf32(False):
+        counts_to_zero()
+        mean_psnr, val_ms = wall(lambda: trainer.validate(st, val))
+        val_launches = counts()["lpsr"]
+        packed = kl.lpsr_pack(trainer.model)     # the weights validate ran
+        with torch.no_grad():
+            k2 = torch.cat([psnr(kl.lpsr_fused(x.contiguous(), packed)
+                                 .clamp(0, 1), y) for x, y in val])
+            ref = torch.cat([psnr(trainer.forward(st["params"], x)
+                                  .clamp(0, 1), y) for x, y in val])
+    d_db = float((k2 - ref).abs().max())
+    d_mean = abs(mean_psnr - float(ref.mean()))
+    print(f"train lpsr validate: {len(val)} batches of {LPSR_VAL_BATCH}, "
+          f"K2 float32 launches {val_launches}, mean PSNR {mean_psnr:.4f} "
+          f"dB, |mean - LPSR.forward's on the trained leaves| {d_mean} dB, "
+          f"per image on validate's packed weights max {d_db} dB (each < "
+          f"{PSNR_TOL_DB}); {val_ms:.2f} ms ({time.perf_counter() - t0:.2f}"
+          f" s for the LPSR part)", flush=True)
+    if (val_launches != len(val) or not d_db < PSNR_TOL_DB
+            or not d_mean < PSNR_TOL_DB):
+        raise AssertionError("validate did not run K2 float32 once a "
+                             "batch on the trained weights, or its PSNR "
+                             "disagrees")
+    note["validate K2 launches"] = val_launches
+
+    # 3. CycleGAN at the CLI's batch of 4: the production generator and
+    # PatchGAN from one start on the card and the CPU; a generator step
+    # compared, then two full steps timed
+    t0 = time.perf_counter()
+    g_cpu = torch.Generator().manual_seed(SEED)
+    gs = {"ab": generator_init(g_cpu), "ba": generator_init(g_cpu)}
+    ds = {"a": discriminator_init(g_cpu), "b": discriminator_init(g_cpu)}
+    real_a = torch.from_numpy(rgb[:CG_BATCH].astype(np.float32) / 255.0
+                              ).to(dev) * 2 - 1           # HR, [-1, 1]
+    real_b = lr_b[:CG_BATCH] * 2 - 1                     # LR
+    cg, cg_twin = CycleGANTrainer(device=dev), CycleGANTrainer(
+        device="cpu")
+    cs, cs_cpu = cg.state_from(gs, ds), cg_twin.state_from(gs, ds)
+    with tf32(False):
+        gl, _ = cg.g_step(cs, real_a, real_b)
+        gl_cpu, _ = cg_twin.g_step(cs_cpu, real_a.cpu(), real_b.cpu())
+    gl, gl_cpu = float(gl), float(gl_cpu)
+    b1 = cg.cfg.beta1
+
+    def normed(k):
+        return k.endswith("/b") and not k.startswith("tail/")
+
+    exact = _generator_grads_f64(gs, ds, real_a, real_b)
+    errs = [_step_errors(
+        cs["g"][which], cs["g_opt"], cs_cpu["g"][which], cs_cpu["g_opt"],
+        cg.cfg.lr, b1, normed) for which in ("ab", "ba")]
+    w_ratio, w_err = (max(e[i] for e in errs) for i in (1, 2))
+    g_err, g_at = max((e[0], e[3]) for e in errs)
+    card_err, card_at = max(_norm_err(
+        _adam_grads(cs["g_opt"], cs["g"][w], b1), exact[w], normed)
+        for w in ("ab", "ba"))
+    cpu_err, cpu_at = max(_norm_err(
+        _adam_grads(cs_cpu["g_opt"], cs_cpu["g"][w], b1), exact[w], normed)
+        for w in ("ab", "ba"))
+    print(f"train cyclegan generator step (batch {CG_BATCH}, 9 blocks base "
+          f"64, PatchGAN 64-512, TF32 off): loss card {gl} CPU {gl_cpu} "
+          f"(rel < {TRAIN_LOSS_RTOL}); gradients' worst relative error in "
+          f"norm against float64 on the CPU: card {card_err} at {card_at}, "
+          f"CPU float32 {cpu_err} at {cpu_at} (card <= {CG_GRAD_K} x CPU: "
+          f"{card_err / cpu_err:.3f} x); card against CPU {g_err} at "
+          f"{g_at}; weights max_abs_err {w_err}, max err / bound {w_ratio} "
+          f"(<= 1)", flush=True)
+    if not (abs(gl - gl_cpu) <= TRAIN_LOSS_RTOL * abs(gl_cpu)
+            and card_err <= CG_GRAD_K * cpu_err and w_ratio <= 1):
+        raise AssertionError("the CycleGAN generator step on the card "
+                             "differs from the CPU's")
+    note["cyclegan grad err vs f64 (card, CPU)"] = (card_err, cpu_err)
+    cg_ms = []
+    for _ in range(2):
+        (cs, metrics), ms = wall(lambda: cg.step(cs, real_a, real_b))
+        cg_ms.append(ms)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"CycleGAN step losses {metrics}")
+    print(f"train cyclegan steps: {[round(m, 3) for m in cg_ms]} ms "
+          f"(batch {CG_BATCH}, cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}), losses {metrics} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    note["cyclegan step ms"] = cg_ms[-1]
+
+    # 4. the CLIs on a handful of crops, on the card, in a temporary dir
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="lpr_train_")
+    try:
+        hr_dir = os.path.join(tmp, "hr")
+        os.makedirs(hr_dir)
+        for p in files[:8]:
+            shutil.copy(p, hr_dir)
+        lr_dir = os.path.join(tmp, "lr")
+        cli_create_lr.main(["--hr-dir", hr_dir, "--out-dir", lr_dir,
+                            "--gan-weights", "checkpoints/cyclegan_real_g.npz",
+                            "--batch", "8", "--device", dev])
+        made = sorted(os.listdir(lr_dir))
+        if made != sorted(os.listdir(hr_dir)) or any(
+                imageio.read_rgb(os.path.join(lr_dir, f)).shape
+                != (*LPSR_HW, 3) for f in made):
+            raise AssertionError(f"create_lr wrote {made}")
+        ck = os.path.join(tmp, "ck")
+        counts_to_zero()
+        cli_train_lpsr.main(
+            ["--hr-train-dir", hr_dir, "--lr-train-dir", lr_dir,
+             "--hr-val-dir", hr_dir, "--lr-val-dir", lr_dir,
+             "--batch-size", "4", "--epochs", "1", "--ckpt-dir", ck,
+             "--runs-dir", os.path.join(tmp, "runs"), "--device", dev])
+        cli_k2 = counts()["lpsr"]
+        for name in ("best_model.npz", "last_model.npz"):
+            got, _ = load_state(os.path.join(ck, name))
+            if got.keys() != start.keys() or any(
+                    got[k].shape != start[k].shape for k in got):
+                raise AssertionError(f"train_lpsr's {name} has another "
+                                     f"layout than {CKPT_LPSR}")
+        cg_root = os.path.join(tmp, "cg")
+        shutil.copytree(hr_dir, os.path.join(cg_root, "trainA"))
+        shutil.copytree(lr_dir, os.path.join(cg_root, "trainB"))
+        cg_ck = os.path.join(tmp, "cg_ck")
+        cli_train_cg.main(["--dataroot", cg_root, "--epochs", "1",
+                           "--ckpt-every", "1", "--ckpt-dir", cg_ck,
+                           "--device", dev])
+        for name in ("AtoB", "BtoA"):
+            got, _ = load_state(os.path.join(cg_ck,
+                                             f"netG_{name}_epoch_1.npz"))
+            if got.keys() != gs["ab"].keys():
+                raise AssertionError(f"train_cyclegan's netG_{name} has "
+                                     f"another layout")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if cli_k2 < 1:
+        raise AssertionError("train_lpsr's validation did not launch K2")
+    print(f"train CLIs on the card: create_lr ({len(made)} crops, "
+          f"--gan-weights cyclegan_real_g.npz), train_lpsr (1 epoch, batch "
+          f"4; best/last_model.npz in the flat layout; K2 launches "
+          f"{cli_k2}), train_cyclegan (1 epoch; netG_AtoB/BtoA_epoch_1.npz)"
+          f" ({time.perf_counter() - t0:.2f} s)", flush=True)
+    note["train_lpsr K2 launches"] = cli_k2
     return note
 
 
@@ -1872,7 +2283,12 @@ def main() -> int:
     export_note = export_phase(card, counts_to_zero, counts)
     phase("export", t, f"; {export_note} on {card}")
 
-    # ---- 11. serving -----------------------------------------------------
+    # ---- 11. train -------------------------------------------------------
+    t = time.perf_counter()
+    train_note = train_phase(card, counts_to_zero, counts)
+    phase("train", t, f"; {train_note} on {card}")
+
+    # ---- 12. serving -----------------------------------------------------
     from lpr_tpu_torch.tools import bench_serving
 
     t = time.perf_counter()
@@ -1884,7 +2300,7 @@ def main() -> int:
             raise AssertionError(f"bench_serving {m}")
     phase("serving", t, f"; modes {[m or ['frames'] for m in modes]}")
 
-    # ---- 12. bench -------------------------------------------------------
+    # ---- 13. bench -------------------------------------------------------
     from lpr_tpu_torch import bench
 
     t = time.perf_counter()

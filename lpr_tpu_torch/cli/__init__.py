@@ -1,3 +1,4 @@
-"""Command-line apps: run, sr, serve, evaluate and find_improvement, each
+"""Command-line apps: run, sr, serve, evaluate, find_improvement, export,
+and the training apps create_lr, train_lpsr and train_cyclegan, each
 ``python -m lpr_tpu_torch.cli.<name>``; on the card unless given
 ``--device cpu``."""

@@ -8,12 +8,15 @@ synthesis (counterpart of ``lpr_tpu/models/cyclegan.py``), NHWC.
   JAX loader casts them into its float32 template).
 - :func:`discriminator_apply`: the PatchGAN of 4x4 convs with spectral
   norm, one power-iteration step a forward, returning the new ``u``
-  vectors as the JAX function returns its new params.  Its training step
-  belongs with the trainers.
+  vectors as the JAX function returns its new params.  The trainer,
+  :mod:`lpr_tpu_torch.train.cyclegan`, carries them between steps.
+- :func:`generator_init`, :func:`discriminator_init`: fresh weights as a
+  flat state, with the JAX package's distributions.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
@@ -27,9 +30,68 @@ from lpr_tpu_torch.weights.checkpoint import State, load_state
 Tensor = torch.Tensor
 
 
+@dataclasses.dataclass(frozen=True)
+class GeneratorConfig:
+    """The generator's shape (``lpr_tpu.models.cyclegan.GeneratorConfig``):
+    the production one has 9 ResNet blocks at base width 64."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    n_resnet_blocks: int = 9
+    base: int = 64
+
+
+# The PatchGAN's spectral-normed convs (cin of the first is the input's).
+DISC_CHANNELS = (64, 128, 256, 512)
+
+
+def _normal(g: torch.Generator, shape, std: float = 1.0) -> np.ndarray:
+    return (torch.randn(shape, generator=g, device=g.device) * std
+            ).cpu().numpy()
+
+
+def generator_init(g: torch.Generator,
+                   cfg: GeneratorConfig = GeneratorConfig()) -> State:
+    """Fresh generator weights as the port's flat state: every conv weight
+    normal(0, 0.02), every bias 0 (``lpr_tpu.models.cyclegan
+    .generator_init``).  Drawn from ``g``; the values are not JAX's."""
+    b = cfg.base
+    convs = [("head", 7, cfg.in_channels, b), ("down0", 3, b, 2 * b),
+             ("down1", 3, 2 * b, 4 * b)]
+    for i in range(cfg.n_resnet_blocks):
+        convs += [(f"blocks/{i}/c0", 3, 4 * b, 4 * b),
+                  (f"blocks/{i}/c1", 3, 4 * b, 4 * b)]
+    convs += [("up0", 3, 4 * b, 2 * b), ("up1", 3, 2 * b, b),
+              ("tail", 7, b, cfg.out_channels)]
+    out: State = {}
+    for key, k, cin, cout in convs:
+        out[f"{key}/w"] = _normal(g, (k, k, cin, cout), 0.02)
+        out[f"{key}/b"] = np.zeros((cout,), np.float32)
+    return out
+
+
+def discriminator_init(g: torch.Generator, in_channels: int = 3) -> State:
+    """Fresh PatchGAN weights as the flat state
+    :func:`discriminator_apply` takes: 4x4 conv weights normal(0, 0.02),
+    a zero bias on the first conv and on ``final``, and a normal(0, 1)
+    power-iteration vector ``u`` for each spectral-normed conv
+    (``lpr_tpu.models.cyclegan.discriminator_init``).  Drawn from ``g``."""
+    out: State = {}
+    cin = in_channels
+    for i, cout in enumerate(DISC_CHANNELS):
+        out[f"convs/{i}/w"] = _normal(g, (4, 4, cin, cout), 0.02)
+        if i == 0:
+            out[f"convs/{i}/b"] = np.zeros((cout,), np.float32)
+        out[f"convs/{i}/u"] = _normal(g, (cout,))
+        cin = cout
+    out["final/w"] = _normal(g, (4, 4, cin, 1), 0.02)
+    out["final/b"] = np.zeros((1,), np.float32)
+    return out
+
+
 def _conv(state: State, prefix: str, **kw) -> tnn.Conv2d:
     return tnn.Conv2d.from_hwio(state[f"{prefix}/w"], state.get(f"{prefix}/b"),
-                                **kw)
+                                key=prefix, **kw)
 
 
 class _ResnetBlock(torch.nn.Module):
@@ -116,7 +178,11 @@ def generator_from_torch(sd: Dict[str, np.ndarray]) -> State:
 
 def _spectral_normalize(w: Tensor, u: Tensor) -> Tuple[Tensor, Tensor]:
     """One power-iteration step on the HWIO weight flattened to (cout,
-    rest), torch ``spectral_norm`` semantics: (w / sigma, new u)."""
+    rest): (w / sigma, new u).  As in the JAX package, the gradient of
+    sigma flows through u and v inside the call (``torch.nn.utils
+    .spectral_norm`` detaches both) and the returned u is detached (JAX's
+    ``stop_gradient``), so a pass on the carried u adds no gradient
+    through the pass that made it."""
     cout = w.shape[-1]
     wm = w.reshape(-1, cout).T
     v = wm.T @ u
@@ -124,7 +190,7 @@ def _spectral_normalize(w: Tensor, u: Tensor) -> Tuple[Tensor, Tensor]:
     u = wm @ v
     u = u / torch.clamp_min(torch.linalg.norm(u), 1e-12)
     sigma = u @ (wm @ v)
-    return w / sigma, u
+    return w / sigma, u.detach()
 
 
 def discriminator_apply(p: Dict[str, Tensor], x: Tensor,

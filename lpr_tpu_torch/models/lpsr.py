@@ -51,7 +51,7 @@ class LPSRConfig:
 
 def _conv(state: State, prefix: str, groups: int = 1) -> tnn.Conv2d:
     return tnn.Conv2d.from_hwio(state[f"{prefix}/w"], state.get(f"{prefix}/b"),
-                                groups=groups)
+                                groups=groups, key=prefix)
 
 
 class DConv(torch.nn.Module):
@@ -101,6 +101,7 @@ class RDB(torch.nn.Module):
         self.lff = _conv(state, f"{prefix}/lff")
         self.register_buffer("alpha", torch.from_numpy(
             np.asarray(state[f"{prefix}/alpha"], np.float32).reshape(())))
+        self.state_keys = {"alpha": (f"{prefix}/alpha", "scalar")}
 
     def forward(self, x):
         y = x
@@ -121,6 +122,8 @@ class CSAR(torch.nn.Module):
             for part in ("w", "b"):
                 self.register_buffer(f"{name}_{part}", torch.from_numpy(
                     np.ascontiguousarray(state[f"{prefix}/{name}/{part}"])))
+        self.state_keys = {f"{n}_{p}": (f"{prefix}/{n}/{p}", None)
+                           for n in ("ca_fc1", "ca_fc2") for p in ("w", "b")}
 
     def forward(self, x):
         x_in = self.conv_in1(torch.relu(self.conv_in0(x)))
@@ -208,6 +211,59 @@ def lpsr_from_torch(sd: Dict[str, np.ndarray],
     conv("rdn/gff0", "rdn.gff.0")
     conv("rdn/gff1", "rdn.gff.1")
     conv("final_conv", "final_conv")
+    return out
+
+
+def _uniform(g: torch.Generator, shape, bound: float) -> np.ndarray:
+    u = torch.rand(shape, generator=g, device=g.device)
+    return ((u * 2.0 - 1.0) * bound).cpu().numpy()
+
+
+def lpsr_init(g: torch.Generator, cfg: LPSRConfig = LPSRConfig()) -> State:
+    """Fresh LPSR weights as the port's flat state, with the JAX
+    package's distributions (``lpr_tpu.models.lpsr.lpsr_init``): every
+    conv and dense weight and bias uniform in +-sqrt(1 / fan_in) (torch's
+    default), each RDB's alpha 1.  Drawn from ``g``; the values are not
+    JAX's."""
+    out: State = {}
+    c, nf, gr = cfg.num_channels, cfg.num_features, cfg.growth_rate
+    e = cfg.expansion * c
+    k = cfg.ae_kernel
+
+    def conv(key, kh, kw, cin, cout, bias=True, groups=1):
+        bound = float(np.sqrt(1.0 / (cin // groups * kh * kw)))
+        out[f"{key}/w"] = _uniform(g, (kh, kw, cin // groups, cout), bound)
+        if bias:
+            out[f"{key}/b"] = _uniform(g, (cout,), bound)
+
+    def dconv(key, cin, cout):
+        conv(f"{key}/dw", k, k, cin, cin, groups=cin)
+        conv(f"{key}/pw", 1, 1, cin, cout)
+
+    conv("auto_encoder/conv_in", 3, 3, c, e, bias=False)
+    for key, cin, cout in (("enc0", e, e), ("enc1", 4 * e, e),
+                           ("dec0", 4 * e, 4 * e), ("dec1", e, 4 * e)):
+        dconv(f"auto_encoder/{key}", cin, cout)
+    conv("auto_encoder/conv_out", 3, 3, e, c, bias=False)
+    conv("rdn/shallowF1", 7, 7, c, nf)
+    conv("rdn/shallowF2", 3, 3, nf, nf)
+    conv("rdn/csar/conv_in0", 3, 3, nf, nf)
+    conv("rdn/csar/conv_in1", 3, 3, nf, nf)
+    for key, cin, cout in (("ca_fc1", nf, nf // 4), ("ca_fc2", nf // 4, nf)):
+        bound = float(np.sqrt(1.0 / cin))
+        out[f"rdn/csar/{key}/w"] = _uniform(g, (cin, cout), bound)
+        out[f"rdn/csar/{key}/b"] = _uniform(g, (cout,), bound)
+    conv("rdn/csar/sa_conv1", 1, 1, nf, 2 * nf)
+    conv("rdn/csar/sa_conv2", 1, 1, 2 * nf, nf)
+    conv("rdn/csar/conv_out", 1, 1, 2 * nf, nf)
+    for i in range(cfg.executed_rdbs):
+        for j in range(cfg.num_layers):
+            conv(f"rdn/rdbs/{i}/layers/{j}", 3, 3, nf + gr * j, gr)
+        conv(f"rdn/rdbs/{i}/lff", 1, 1, nf + gr * cfg.num_layers, nf)
+        out[f"rdn/rdbs/{i}/alpha"] = np.ones((), np.float32)
+    conv("rdn/gff0", 1, 1, nf * cfg.num_blocks, nf)
+    conv("rdn/gff1", 3, 3, nf, nf)
+    conv("final_conv", 3, 3, nf, cfg.out_channels)
     return out
 
 

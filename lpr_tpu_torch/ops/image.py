@@ -1,5 +1,7 @@
-"""Device-side image ops (counterpart of ``lpr_tpu/ops/image.py``): resize,
-letterbox, oriented crop sampling and skew estimation.
+"""Device-side image ops (counterpart of ``lpr_tpu/ops/image.py``): resize
+(bilinear and bicubic, ``jax.image.resize``'s semantics), letterbox,
+oriented crop sampling, skew estimation and the HSV value scale of the LR
+degradation.
 
 The JAX functions work on one image and are ``vmap``-ed by the pipeline;
 here the batch dimensions are written out.  Plate-level functions take
@@ -52,19 +54,37 @@ def rgb_to_gray(x: Tensor) -> Tensor:
     return x @ _gray_weights(x.dtype, x.device)
 
 
-def resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) weights of ``jax.image.resize(..., "linear")`` along one
-    axis: a triangle kernel widened by the down-scale factor (antialiasing),
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0.0), np.float32(1.0) - x)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5
+    (``jax._src.image.scale._fill_keys_cubic_kernel``), in float32."""
+    one, two = np.float32(1.0), np.float32(2.0)
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + one
+    out = np.where(x >= one, ((np.float32(-0.5) * x + np.float32(2.5)) * x
+                              - np.float32(4.0)) * x + two, out)
+    return np.where(x >= two, np.float32(0.0), out).astype(np.float32)
+
+
+_KERNELS = {"linear": _triangle, "cubic": _keys_cubic}
+
+
+def resize_weights(n_in: int, n_out: int, method: str = "linear"
+                   ) -> np.ndarray:
+    """(n_out, n_in) weights of ``jax.image.resize(..., method)`` along one
+    axis, ``method`` ``"linear"`` (a triangle) or ``"cubic"`` (Keys,
+    a = -0.5): the kernel widened by the down-scale factor (antialiasing),
     each row normalised to sum 1 (``jax._src.image.scale``
     ``compute_weight_mat`` with translation 0)."""
-    scale = np.float32(n_out) / np.float32(n_in)
-    inv_scale = np.float32(1.0) / scale
+    inv_scale = np.float32(1.0 / (n_out / n_in))   # in float64, as JAX
     kernel_scale = max(inv_scale, np.float32(1.0))
     sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
                 * inv_scale - np.float32(0.5))
     x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None]
                ) / kernel_scale
-    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    w = _KERNELS[method](x)
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, 1), 0.0)
@@ -75,23 +95,47 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 @torch.inference_mode(False)
-def _resize_matrix(n_in: int, n_out: int, dtype, device) -> Tensor:
+def _resize_matrix(n_in: int, n_out: int, dtype, device,
+                   method: str = "linear") -> Tensor:
     """:func:`resize_weights` on ``device`` in ``dtype``, built once."""
-    return torch.from_numpy(resize_weights(n_in, n_out)).to(device, dtype)
+    return torch.from_numpy(resize_weights(n_in, n_out, method)).to(
+        device, dtype)
+
+
+def _resize(x: Tensor, out_hw: Tuple[int, int], method: str) -> Tensor:
+    h, w = int(x.shape[-3]), int(x.shape[-2])
+    oh, ow = out_hw
+    if oh != h:
+        ry = _resize_matrix(h, oh, x.dtype, x.device, method)
+        x = torch.einsum("oh,...hwc->...owc", ry, x)
+    if ow != w:
+        rx = _resize_matrix(w, ow, x.dtype, x.device, method)
+        x = torch.einsum("pw,...owc->...opc", rx, x)
+    return x
 
 
 def resize_bilinear(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     """Bilinear resize of (..., H, W, C) with ``jax.image.resize``'s
     ``"linear"`` semantics (antialiased when shrinking)."""
-    h, w = int(x.shape[-3]), int(x.shape[-2])
-    oh, ow = out_hw
-    if oh != h:
-        ry = _resize_matrix(h, oh, x.dtype, x.device)
-        x = torch.einsum("oh,...hwc->...owc", ry, x)
-    if ow != w:
-        rx = _resize_matrix(w, ow, x.dtype, x.device)
-        x = torch.einsum("pw,...owc->...opc", rx, x)
-    return x
+    return _resize(x, out_hw, "linear")
+
+
+def resize_bicubic(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
+    """Bicubic resize of (..., H, W, C) with ``jax.image.resize``'s
+    ``"cubic"`` semantics: Keys' kernel, widened by the down-scale factor
+    when shrinking (the degradation's x0.35 step is such a shrink)."""
+    return _resize(x, out_hw, "cubic")
+
+
+def hsv_value_scale(rgb: Tensor, scale: Tensor) -> Tensor:
+    """Scale the HSV V channel of RGB [0, 1] images (..., H, W, 3) by
+    ``scale`` (..., H, W) without leaving RGB: V = max(R, G, B), every
+    channel scaled by clip(V * scale, 0, 1) / V (0 where V is 0)."""
+    v = rgb.amax(dim=-1, keepdim=True)
+    new_v = torch.clamp(v * scale[..., None], 0.0, 1.0)
+    ratio = torch.where(v > 0, new_v / torch.clamp_min(v, 1e-6),
+                        torch.zeros((), dtype=v.dtype, device=v.device))
+    return rgb * ratio
 
 
 def letterbox_geom(h: int, w: int, out_hw: Tuple[int, int],

@@ -243,14 +243,29 @@ def upsample_nearest(x: Tensor, scale: int = 2) -> Tensor:
     return y.reshape(n, h * scale, w * scale, c)
 
 
+# How a buffer's tensor is made from the flat state's (HWIO) tensor: the
+# one place where the trainers' HWIO leaves meet the modules' layouts.
+_TO_BUFFER = {
+    None: lambda t: t,
+    "hwio": lambda t: t.permute(3, 2, 0, 1),     # HWIO -> OIHW, a view
+    "scalar": lambda t: t.reshape(()),
+}
+
+
 class Conv2d(torch.nn.Module):
     """A conv layer held as OIHW weight + bias buffers, applied NHWC.
 
-    Built from HWIO numpy arrays with :meth:`from_hwio`; the port runs
-    inference only, so parameters are buffers and carry no gradients."""
+    Built from HWIO numpy arrays with :meth:`from_hwio`.  The weights are
+    buffers, so inference builds no autograd graph and the frozen graphs,
+    the kernels' packs and the exporters read them as they are.  Training
+    does not make them parameters: a layer built from a flat state names
+    its keys (``key``, the state prefix, kept in :attr:`state_keys`), and
+    the trainers run the module through ``torch.func.functional_call``
+    with :func:`state_to_buffers` of their HWIO leaf tensors."""
 
     def __init__(self, w_oihw: np.ndarray, b: Optional[np.ndarray], *,
-                 stride=1, padding: PadLike = "same", groups: int = 1):
+                 stride=1, padding: PadLike = "same", groups: int = 1,
+                 key: Optional[str] = None):
         super().__init__()
         self.register_buffer("w", torch.from_numpy(
             np.ascontiguousarray(w_oihw, np.float32)))
@@ -258,6 +273,9 @@ class Conv2d(torch.nn.Module):
             "b", None if b is None else torch.from_numpy(
                 np.ascontiguousarray(b, np.float32)))
         self.stride, self.padding, self.groups = stride, padding, groups
+        self.state_keys = {} if key is None else {"w": (f"{key}/w", "hwio")}
+        if key is not None and b is not None:
+            self.state_keys["b"] = (f"{key}/b", None)
 
     @classmethod
     def from_hwio(cls, w, b=None, **kw) -> "Conv2d":
@@ -266,3 +284,26 @@ class Conv2d(torch.nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         return conv2d(x, self.w, self.b, stride=self.stride,
                       padding=self.padding, groups=self.groups)
+
+
+def state_to_buffers(module: torch.nn.Module, tensors) -> dict:
+    """{buffer name: tensor} for ``torch.func.functional_call(module,
+    ...)``: each buffer that a submodule's ``state_keys`` ({local buffer:
+    (state key, layout)}) ties to a key of the flat state ``tensors``,
+    made from that tensor in the buffer's layout (an HWIO conv weight as
+    its OIHW view), so gradients reach the HWIO tensors."""
+    out = {}
+    for name, mod in module.named_modules():
+        for local, (key, layout) in getattr(mod, "state_keys", {}).items():
+            if key in tensors:
+                full = f"{name}.{local}" if name else local
+                out[full] = _TO_BUFFER[layout](tensors[key])
+    return out
+
+
+@torch.no_grad()
+def load_state_into(module: torch.nn.Module, tensors) -> None:
+    """Copy the flat state ``tensors`` into ``module``'s buffers in place
+    (:func:`state_to_buffers`' mapping)."""
+    for name, t in state_to_buffers(module, tensors).items():
+        module.get_buffer(name).copy_(t)

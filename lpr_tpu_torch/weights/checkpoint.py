@@ -1,4 +1,4 @@
-"""Numpy-only reader for the repo's flat npz checkpoints.
+"""Numpy-only reader and writer of the repo's flat npz checkpoints.
 
 Counterpart of ``lpr_tpu/weights/checkpoint.py``.  A checkpoint is an npz
 whose keys are parameter-pytree paths joined with ``/`` (``0/w`` is an HWIO
@@ -39,6 +39,16 @@ def load_state(path: str) -> Tuple[State, Dict[str, np.ndarray]]:
              if not is_side_key(k)}
     side = {k: v for k, v in raw.items() if is_side_key(k)}
     return state, side
+
+
+def save_state(path: str, state, **extras) -> None:
+    """Write a flat state (numpy arrays or tensors) as the JAX package's
+    ``save_params`` writes a pytree: ``np.savez_compressed`` with the same
+    ``/``-joined key paths, so either package loads the other's file;
+    ``extras`` adds side keys such as ``__anchors__``."""
+    arrays = {k: (v.detach().cpu().numpy() if hasattr(v, "detach")
+                  else np.asarray(v)) for k, v in state.items()}
+    np.savez_compressed(path, **arrays, **extras)
 
 
 def params_from_jax(tree: Any) -> State:
