@@ -21,7 +21,8 @@ Phases, each printing one line with its elapsed seconds:
    each of the 50 instances of I2's conv_int8_kernel (fails if one has
    none), and nvcc's registers and spills for the uint8 instance,
    mid_kernel and each kernel of I1 and I2.  Then the host libraries with g++
-   (csrc/host_letterbox.cc always; csrc/host_decode.cc, which links
+   (csrc/host_letterbox.cc and csrc/host_augment.cc always;
+   csrc/host_decode.cc, which links
    libjpeg and libpng, where g++ finds their headers, else one line says
    that the decode calls are not driven and why), each g++ command
    printed.
@@ -155,11 +156,25 @@ Phases, each printing one line with its elapsed seconds:
    train_lpsr and train_cyclegan CLIs for one epoch on 8 crops, whose
    checkpoints must load in the flat layout.  Its K2 launches are printed
    on its line, not counted in the kernels line.
-12. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
+12. train_det — the detector trainers on the card (temporary files
+   only): a PNG tree of 32 synthetic 720p frames with their panels as
+   labels; YoloDataset with the defaults' augmentation (mosaic) through
+   csrc/host_augment.cc, one sample equal byte for byte to the same sample
+   through the plain numpy versions, the loader's images/s; one
+   YoloTrainer step of yolov5s nc=11 at 640x640, batch 2, float32, TF32
+   off, past warm-up, on the card against the same step on the CPU (loss,
+   gradients against float64 on the CPU, every weight, the running
+   statistics: DET_*), then steps at batch 16 timed by
+   bench_train_step.bench_det (TF32 off and on, FLOPs and peak share);
+   validate_map on the EMA weights, and on plate_det640.npz over the
+   tree's labels on the card and on the CPU (DET_VAL_*); cli/train_yolo
+   for one epoch on the tree (batch 16, --cache), whose last.npz must
+   load through load_plate_detector and run.  No kernel is on this path.
+13. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
    requests, max_batch 8), with frames, with the pool, over HTTP and, where
    host_decode built, with files: its JSON lines (client frames/s, latency
    p50/p99, mean batch, the card).
-13. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
+14. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
    with BENCH_PACKED=1 and =0, and BENCH_PACKED=1 with BENCH_INT8=1 (which
    must launch I1's two kernels and I2): its JSON lines (frames/s, flops_per_frame,
    mfu_pct against the bf16 peak, the card).
@@ -1133,6 +1148,312 @@ def train_phase(card, counts_to_zero, counts, dev="cuda"):
     return note
 
 
+# The train_det phase: a 32-frame PNG tree of synthetic 720p frames with
+# their panels as labels (tools/synth.py write_yolo_tree); the production
+# detector trainer, yolov5s nc=11 at 640x640 float32, from yolo_init's
+# weights; one step compared at batch DET_CMP_BATCH (the CPU side takes
+# seconds a step at 640x640), past warm-up (step DET_CMP_STEP of 100 an
+# epoch) so that every group of weights moves; steps timed at batch 16
+# (the production step) with TF32 off and on.
+DET_FRAMES = 32
+DET_BATCH = 16
+DET_CMP_BATCH = 2
+DET_CMP_STEP = 1000
+DET_TIMED_STEPS = 10
+DET_WORKERS = 8
+# One step on the card against the same step on the CPU (TF32 off), limits
+# set before the first run:
+# - the loss within DET_LOSS_RTOL relative;
+# - the gradients (each side's first momentum less its weight decay, m = g
+#   + wd * w) in norm, tensor by tensor, against float64 on the CPU: the
+#   card's worst relative error within DET_GRAD_K times the CPU float32's
+#   worst (as the CycleGAN generator's in phase train: batch statistics
+#   amplify float32 rounding, and a pre-activation that rounds to exactly
+#   0 meets the SiLU's flush on one side only), over the tensors whose
+#   float64 gradient is above DET_GRAD_FLOOR of the largest (a bias before
+#   a batch norm cancels to ~0 and carries noise only);
+# - each weight within DET_PARAM_TOL plus lr * (1 + momentum) * |m_card -
+#   m_cpu|: Nesterov SGD is linear in the gradient, so the bound is exact;
+# - the running statistics within DET_STAT_RTOL of each tensor's largest.
+DET_LOSS_RTOL = 1e-5
+DET_GRAD_K = 4
+DET_GRAD_FLOOR = 1e-4
+DET_PARAM_TOL = 1e-6
+DET_STAT_RTOL = 1e-5
+# validate_map of plate_det640.npz (yolov5s nc=11) over the tree's labels
+# (its panels are the detector's classes 7 and 8), on the card and on the
+# CPU, float32 and TF32 off, limits set before the first run: mAP50 above
+# DET_VAL_MAP50_MIN on both (0.753 on the CPU for this tree), and mAP50
+# and mAP within DET_VAL_TOL of each other (a box's float32 difference
+# moves an IoU by ~1e-6, which flips a match at one of the ten thresholds
+# rarely; one flip among the tree's ~60 panels moves mAP by ~1e-3).
+DET_VAL_MAP50_MIN = 0.5
+DET_VAL_TOL = 1e-3
+
+
+def _det_grads(trainer, state):
+    """{key: the first step's gradient, float64 on the CPU}: the momentum
+    after one step from zero less the weight decay it added."""
+    from lpr_tpu_torch.train.yolo import _is_conv_weight
+
+    wd = trainer.cfg.weight_decay
+    out = {}
+    for k, m in state["momenta"].items():
+        g = m.detach().double().cpu()
+        if _is_conv_weight(k):
+            g = g - wd * state["_w0"][k]
+        out[k] = g
+    return out
+
+
+def train_det_phase(card, dev="cuda"):
+    """Phase train_det: the detector's data pipeline (a PNG tree, the
+    host library against its plain numpy versions on one augmented
+    sample, the loader's images/s), one YoloTrainer step on the card
+    against the CPU's and float64's, timed steps at batch 16 (TF32 off and
+    on), validate_map on the EMA weights, and cli/train_yolo for one epoch
+    into a temporary directory, whose last.npz must load through
+    load_plate_detector; returns a note for the phase line.  ``dev="cpu"``
+    (with smaller module constants) rehearses it where there is no
+    card."""
+    import contextlib
+    import random
+    import shutil
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from lpr_tpu_torch import native
+    from lpr_tpu_torch.cli import train_yolo as cli_train_yolo
+    from lpr_tpu_torch.data import cv_plain
+    from lpr_tpu_torch.data import yolo_data
+    from lpr_tpu_torch.models.yolo import load_plate_detector, yolov5
+    from lpr_tpu_torch.tools import bench_input, bench_train_step
+    from lpr_tpu_torch.tools.synth import write_yolo_tree
+    from lpr_tpu_torch.train.yolo import (_is_bias, _is_running_stat,
+                                          validate_map)
+    from lpr_tpu_torch.weights.checkpoint import load_state
+
+    note = {}
+    tmp = tempfile.mkdtemp(prefix="lpr_train_det_")
+
+    @contextlib.contextmanager
+    def tf32(on):
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = on
+        torch.backends.cuda.matmul.allow_tf32 = on
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+
+    try:
+        # 1. data: the tree, one augmented sample through the host library
+        # and through the plain numpy versions (equal byte for byte), the
+        # loader's rates
+        t0 = time.perf_counter()
+        img_dir, lbl_dir = write_yolo_tree(os.path.join(tmp, "tree"),
+                                           DET_FRAMES)
+        write_s = time.perf_counter() - t0
+        ds = yolo_data.YoloDataset(img_dir, lbl_dir, (640, 640), seed=0,
+                                   cache_images=True)
+        ds.cache_all(workers=DET_WORKERS)
+        host = ds.get(0, rng=random.Random(5))
+        plain = types.SimpleNamespace(cv_resize_linear=cv_plain.resize_linear,
+                                      cv_warp_affine=cv_plain.warp_affine,
+                                      cv_hsv_lut=cv_plain.hsv_lut)
+        yolo_data.native = plain
+        try:
+            ref = ds.get(0, rng=random.Random(5))
+        finally:
+            yolo_data.native = native
+        if not (np.array_equal(host[0], ref[0])
+                and np.array_equal(host[1], ref[1])):
+            raise AssertionError("an augmented sample through the host "
+                                 "library differs from its plain numpy "
+                                 "versions")
+        n_lab = int((host[1][:, 3] > 0).sum())
+        cached = bench_input.epoch_rate(ds, DET_BATCH, 1)
+        threaded = bench_input.epoch_rate(ds, DET_BATCH, 1, DET_WORKERS)
+        print(f"train_det data: {DET_FRAMES} PNG frames 720x1280 written in "
+              f"{write_s:.2f} s; a mosaic sample (640x640, {n_lab} labels) "
+              f"through csrc/host_augment.cc equal to the plain numpy "
+              f"versions byte for byte; loader on cached images "
+              f"{cached:.1f} images/s on 1 thread, {threaded:.1f} with "
+              f"{DET_WORKERS} workers ({time.perf_counter() - t0:.2f} s)",
+              flush=True)
+        note["loader images/s (1 thread, workers)"] = (round(cached, 1),
+                                                       round(threaded, 1))
+
+        # 2. one step: card, CPU float32, CPU float64 gradients
+        t0 = time.perf_counter()
+        x, lab = bench_train_step.det_batch(DET_CMP_BATCH)
+        trainers = {side: bench_train_step.det_trainer(torch.device(d))
+                    for side, d in (("card", dev), ("cpu", "cpu"))}
+        w0 = trainers["cpu"].init(torch.Generator().manual_seed(SEED))
+        w0 = {k: v.detach() for k, v in w0["params"].items()}
+        states, totals = {}, {}
+        with tf32(False):
+            for side, tr in trainers.items():
+                st = tr.init(params=w0)
+                st["step"] = DET_CMP_STEP
+                st, total, _ = tr.step(st, x, lab)
+                st["_w0"] = {k: v.double() for k, v in w0.items()}
+                states[side], totals[side] = st, float(total)
+        twin = trainers["cpu"]
+        p64 = {k: v.double().requires_grad_(not _is_running_stat(k))
+               for k, v in w0.items()}
+        from lpr_tpu_torch.models.yolo_train import train_forward
+        from lpr_tpu_torch.train.yolo_loss import yolo_loss
+
+        raws, _ = train_forward(twin.model, p64,
+                                torch.from_numpy(x).double())
+        t64, _ = yolo_loss(raws, torch.from_numpy(lab).double(),
+                           twin.anchors.double())
+        keys = [k for k, v in p64.items() if v.requires_grad]
+        g64 = dict(zip(keys, torch.autograd.grad(
+            t64, [p64[k] for k in keys], allow_unused=True)))
+        g64 = {k: torch.zeros_like(p64[k]) if v is None else v.detach()
+               for k, v in g64.items()}
+        if set(g64) != set(states["card"]["momenta"]):
+            raise AssertionError("the trainer's momenta are not one for "
+                                 "each trainable tensor")
+        g_card = _det_grads(trainers["card"], states["card"])
+        g_cpu = _det_grads(twin, states["cpu"])
+        top = max(float(v.norm()) for v in g64.values())
+
+        def worst(g):
+            err, at = 0.0, None
+            for k, r in g64.items():
+                n = float(r.norm())
+                if n <= DET_GRAD_FLOOR * top:
+                    continue
+                e = float((g[k] - r).norm()) / n
+                if e > err:
+                    err, at = e, k
+            return err, at
+
+        card_err, card_at = worst(g_card)
+        cpu_err, cpu_at = worst(g_cpu)
+        lr_w, lr_b, mom = twin.rates(DET_CMP_STEP)
+        w_ratio = stat_err = 0.0
+        for k, p in states["cpu"]["params"].items():
+            got = states["card"]["params"][k].detach().cpu().double()
+            ref = p.detach().double()
+            if _is_running_stat(k):
+                stat_err = max(stat_err, float((got - ref).abs().max()
+                                               / ref.abs().max()))
+                continue
+            dm = (states["card"]["momenta"][k].cpu().double()
+                  - states["cpu"]["momenta"][k].double()).abs()
+            bound = DET_PARAM_TOL + (lr_b if _is_bias(k) else lr_w) * (
+                1 + mom) * dm
+            w_ratio = max(w_ratio, float(((got - ref).abs() / bound).max()))
+        loss_rel = abs(totals["card"] - totals["cpu"]) / abs(totals["cpu"])
+        print(f"train_det step (yolov5s nc=11, 640x640, batch "
+              f"{DET_CMP_BATCH}, float32, TF32 off, step {DET_CMP_STEP}: lr "
+              f"{lr_w:.5f}, momentum {mom}): loss card {totals["card"]} CPU "
+              f"{totals['cpu']} float64 {float(t64.detach())} (rel {loss_rel}, < "
+              f"{DET_LOSS_RTOL}); gradients' worst relative error in norm "
+              f"against float64: card {card_err} at {card_at}, CPU float32 "
+              f"{cpu_err} at {cpu_at} (card <= {DET_GRAD_K} x CPU: "
+              f"{card_err / max(cpu_err, 1e-12):.3f} x); weights max err / "
+              f"bound {w_ratio} (<= 1); running statistics max err "
+              f"{stat_err} of the largest (< {DET_STAT_RTOL}) "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if not (loss_rel < DET_LOSS_RTOL
+                and card_err <= DET_GRAD_K * max(cpu_err, 1e-7)
+                and w_ratio <= 1 and stat_err < DET_STAT_RTOL):
+            raise AssertionError("the detector step on the card differs "
+                                 "from the CPU's")
+        note["det grad err vs f64 (card, CPU)"] = (card_err, cpu_err)
+
+        # 3. timed steps at batch 16, TF32 off and on
+        t0 = time.perf_counter()
+        step_ms, rec = {}, None
+        for mode, on in (("fp32", False), ("tf32", True)):
+            with tf32(on):
+                rec = bench_train_step.bench_det(torch.device(dev),
+                                                 DET_TIMED_STEPS, DET_BATCH)
+            step_ms[mode] = rec["step_ms"]
+        flops = rec["flops_per_step"]
+        print(f"train_det step timed (bench_train_step.bench_det: yolov5s "
+              f"nc=11 640x640 batch {DET_BATCH}, yolo_init weights, a "
+              f"fixed random batch): median of {DET_TIMED_STEPS} after "
+              f"{bench_train_step.WARMUP} warm-up, fp32 (TF32 off) "
+              f"{step_ms['fp32']:.3f} ms = "
+              f"{DET_BATCH / step_ms['fp32'] * 1e3:.1f} images/s, "
+              f"cuDNN+cuBLAS TF32 {step_ms['tf32']:.3f} ms = "
+              f"{DET_BATCH / step_ms['tf32'] * 1e3:.1f} images/s; "
+              f"{flops:.4g} FLOP a step (flop_counter) = "
+              f"{flops / (step_ms['fp32'] / 1e3) / 67e12 * 100:.1f} % of "
+              f"67 TFLOP/s fp32, "
+              f"{flops / (step_ms['tf32'] / 1e3) / 495e12 * 100:.1f} % of "
+              f"495 TFLOP/s TF32 on {card} ({time.perf_counter() - t0:.2f} "
+              f"s)", flush=True)
+        note["det step ms"] = step_ms
+
+        # 4. validate_map on the card step's EMA (a run check: random
+        # weights find nothing), on plate_det640.npz on the card and the
+        # CPU, and the CLI for one epoch
+        t0 = time.perf_counter()
+        val = yolo_data.YoloDataset(img_dir, lbl_dir, (640, 640),
+                                    augment=False)
+
+        def val_batches():
+            return val.batches(DET_BATCH, shuffle=False, workers=DET_WORKERS)
+
+        with tf32(False):
+            metrics = validate_map(trainers["card"].model,
+                                   states["card"]["ema"], val_batches(),
+                                   device=dev)
+            plate, _ = load_state(CKPT_PLATE)
+            on_plate = {d: validate_map(yolov5("s", nc=11), plate,
+                                        val_batches(), device=d)
+                        for d in (dev, "cpu")}
+        if not all(np.isfinite(metrics[k]) for k in ("map50", "map")):
+            raise AssertionError(f"validate_map gave {metrics}")
+        got, ref = on_plate[dev], on_plate["cpu"]
+        val_err = max(abs(got[k] - ref[k]) for k in ("map50", "map"))
+        print(f"train_det validate_map of {CKPT_PLATE} over the tree's "
+              f"{DET_FRAMES} frames: card mAP50 {got['map50']} mAP "
+              f"{got['map']}, CPU mAP50 {ref['map50']} mAP {ref['map']} "
+              f"(mAP50 > {DET_VAL_MAP50_MIN} on both, difference {val_err}"
+              f" <= {DET_VAL_TOL})", flush=True)
+        if not (min(got["map50"], ref["map50"]) > DET_VAL_MAP50_MIN
+                and val_err <= DET_VAL_TOL):
+            raise AssertionError("validate_map of the plate checkpoint on "
+                                 "the card differs from the CPU's or finds "
+                                 "too little")
+        note["det plate mAP50 (card, CPU)"] = (got["map50"], ref["map50"])
+        ck = os.path.join(tmp, "ck")
+        state = cli_train_yolo.main([
+            "--img-dir", img_dir, "--label-dir", lbl_dir, "--nc", "11",
+            "--arch", "yolov5s", "--imgsz", "640", "--batch-size",
+            str(DET_BATCH), "--epochs", "1", "--cache", "--workers",
+            str(DET_WORKERS), "--ckpt-dir", ck, "--runs-dir",
+            os.path.join(tmp, "runs"), "--device", dev])
+        det = load_plate_detector(os.path.join(ck, "last.npz"), device=dev)
+        with torch.no_grad():
+            pred, _ = det(torch.from_numpy(x).to(dev), decode=True)
+        if not (state["step"] == DET_FRAMES // DET_BATCH
+                and bool(torch.isfinite(pred).all())):
+            raise AssertionError("cli/train_yolo's last.npz does not run")
+        print(f"train_det validate_map on the EMA after the card's step: "
+              f"mAP50 {metrics['map50']} mAP {metrics['map']}; "
+              f"cli/train_yolo 1 epoch ({state['step']} steps, batch "
+              f"{DET_BATCH}, --cache) on the PNG tree, last.npz loaded by "
+              f"load_plate_detector and run ({time.perf_counter() - t0:.2f}"
+              f" s)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return note
+
+
 _T0 = time.perf_counter()
 
 
@@ -1263,8 +1584,8 @@ def main() -> int:
     # the image decode only where g++ finds libjpeg's and libpng's headers
     # (without them it cannot build, and its calls are not driven).
     decode_missing = _build.missing_headers("host_decode")
-    host_names = ["host_letterbox"] + (["host_decode"] if not decode_missing
-                                       else [])
+    host_names = ["host_letterbox", "host_augment"] + (
+        ["host_decode"] if not decode_missing else [])
     for n in host_names:
         print(f"g++[{n}]: {' '.join(_build.host_command(n, _build._target(n, '.cc')))}",
               flush=True)
@@ -2288,7 +2609,12 @@ def main() -> int:
     train_note = train_phase(card, counts_to_zero, counts)
     phase("train", t, f"; {train_note} on {card}")
 
-    # ---- 12. serving -----------------------------------------------------
+    # ---- 12. train_det ---------------------------------------------------
+    t = time.perf_counter()
+    train_det_note = train_det_phase(card)
+    phase("train_det", t, f"; {train_det_note} on {card}")
+
+    # ---- 13. serving -----------------------------------------------------
     from lpr_tpu_torch.tools import bench_serving
 
     t = time.perf_counter()
@@ -2300,7 +2626,7 @@ def main() -> int:
             raise AssertionError(f"bench_serving {m}")
     phase("serving", t, f"; modes {[m or ['frames'] for m in modes]}")
 
-    # ---- 13. bench -------------------------------------------------------
+    # ---- 14. bench -------------------------------------------------------
     from lpr_tpu_torch import bench
 
     t = time.perf_counter()

@@ -12,7 +12,8 @@ the port's host decoder, and the folder listing of the evaluation tools.
 - :func:`png_bytes`, :func:`write_png` — (H, W, 3) uint8 -> an 8-bit RGB
   PNG, written with ``zlib`` and ``struct`` alone.
 - :func:`list_images` — the PNG and JPEG files of a folder, sorted, as the
-  JAX evaluator lists them.
+  JAX evaluator lists them; :func:`image_hw` — an image's size, from a
+  PNG's header.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -51,6 +52,17 @@ def read_rgb(path: str) -> np.ndarray:
             raise ValueError(f"{path}: the JPEG does not decode")
         return img
     raise ValueError(f"{path}: neither PNG nor JPEG")
+
+
+def image_hw(path: str) -> Tuple[int, int]:
+    """(height, width) of an image file: a PNG's from its header (no
+    decode), any other through :func:`read_rgb`."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head.startswith(PNG_SIGNATURE) and head[12:16] == b"IHDR":
+        w, h = struct.unpack(">II", head[16:24])
+        return int(h), int(w)
+    return tuple(read_rgb(path).shape[:2])
 
 
 def _chunks(data: bytes):
@@ -124,6 +136,8 @@ def _unfilter(types: np.ndarray, filt: np.ndarray, bpp: int) -> np.ndarray:
     if types.max(initial=0) > 4:
         raise ValueError(f"PNG row filter {int(types.max())} is not a "
                          f"valid one")
+    if not types.any():            # filter 0 on every row: the bytes as is
+        return np.ascontiguousarray(filt)
     h, nb = filt.shape
     n = nb // bpp
     rows, xs = np.mgrid[1:h + 1, 0:n]

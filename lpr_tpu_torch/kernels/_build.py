@@ -33,7 +33,7 @@ NVCC_TIMEOUT_S = 600
 # round where the numpy reference rounds (ops/image.py _resize_u8).
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off")
 # What each host library links, as native/Makefile links the JAX package's.
-HOST_LIBS = {"host_letterbox": ("-lpthread",),
+HOST_LIBS = {"host_letterbox": ("-lpthread",), "host_augment": (),
              "host_decode": ("-ljpeg", "-lpng16", "-lpthread")}
 
 

@@ -940,6 +940,7 @@ def build_yolo(spec: YoloSpec, ckpt_anchors: Optional[np.ndarray] = None,
                 st = np.asarray(strides, np.float32).reshape(-1, 1, 1)
                 anchors_grid = a / st
             lay = Detect(spec.nc, anchors_grid, strides)
+            lay.ch = tuple(ch[j] for j in f)    # the input channels
             c2 = c1
         lay.i, lay.f = i, f
         layers.append(lay)

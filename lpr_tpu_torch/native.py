@@ -1,13 +1,16 @@
 """ctypes bindings of the port's host libraries (counterpart of
 ``lpr_tpu/native/__init__.py``).
 
-Two plain-C libraries, built with ``g++`` at first use by
+Three plain-C libraries, built with ``g++`` at first use by
 :mod:`lpr_tpu_torch.kernels._build` into ``build/lpr_tpu_torch/``:
 
 - ``csrc/host_letterbox.cc`` (no dependency): the threaded NHWC batch
   letterbox of the packed detector input (:func:`letterbox_batch_into`)
   and Pillow's bilinear and bicubic resamples (:func:`resize_pil_bilinear`,
   :func:`resize_pil_bicubic`);
+- ``csrc/host_augment.cc`` (no dependency): the detector data
+  pipeline's OpenCV operations, :func:`cv_resize_linear`,
+  :func:`cv_warp_affine` and :func:`cv_hsv_lut`;
 - ``csrc/host_decode.cc`` (libjpeg, libpng): :func:`decode_image` and
   :func:`load_letterbox_batch`, the decode path of the JAX package's
   ``native/lpr_native.cc``.
@@ -41,8 +44,8 @@ def _threads(n_threads: int) -> int:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The bound library of ``csrc/<name>.cc`` (``host_letterbox`` or
-    ``host_decode``), built at first use; raises with g++'s message when it
+    """The bound library of ``csrc/<name>.cc`` (``host_letterbox``,
+    ``host_augment`` or ``host_decode``), built at first use; raises with g++'s message when it
     does not build."""
     from lpr_tpu_torch.kernels import _build
 
@@ -63,6 +66,20 @@ def library(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        elif name == "host_augment":
+            lib.lpr_cv_resize_linear.restype = ctypes.c_int
+            lib.lpr_cv_resize_linear.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            lib.lpr_cv_warp_affine.restype = ctypes.c_int
+            lib.lpr_cv_warp_affine.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int]
+            lib.lpr_cv_hsv_lut.restype = None
+            lib.lpr_cv_hsv_lut.argtypes = [
+                ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p]
         else:
             lib.lpr_load_letterbox_batch.restype = ctypes.c_int
             lib.lpr_load_letterbox_batch.argtypes = [
@@ -225,4 +242,63 @@ def load_letterbox_batch(paths: List[str], out_hw, fill: int = 0,
     arr = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
     library("host_decode").lpr_load_letterbox_batch(
         arr, n, out.ctypes.data, oh, ow, int(fill), _threads(n_threads))
+    return out
+
+
+def _u8_image(img: np.ndarray, what: str) -> np.ndarray:
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"{what}: expected a uint8 (H, W, C) image, got "
+                         f"{img.dtype} {img.shape}")
+    return img
+
+
+def cv_resize_linear(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
+    """``cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)`` of a
+    uint8 (H, W, C) image, OpenCV's arithmetic in C
+    (``csrc/host_augment.cc``)."""
+    img = _u8_image(img, "cv_resize_linear")
+    h, w, cn = img.shape
+    out = np.empty((nh, nw, cn), np.uint8)
+    if library("host_augment").lpr_cv_resize_linear(
+            img.ctypes.data, h, w, cn, out.ctypes.data, nh, nw) != 0:
+        raise ValueError(f"cv_resize_linear: bad sizes {img.shape} -> "
+                         f"{(nh, nw)}")
+    return out
+
+
+def cv_warp_affine(img: np.ndarray, m: np.ndarray, dsize: Tuple[int, int],
+                   border: int = 114) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize=(w, h), borderValue=(border,) * 3)``
+    (INTER_LINEAR) of a uint8 (H, W, 3) image, m the forward 2x3 matrix
+    (``csrc/host_augment.cc``)."""
+    img = _u8_image(img, "cv_warp_affine")
+    if img.shape[2] != 3:
+        raise ValueError(f"cv_warp_affine: expected 3 channels, got "
+                         f"{img.shape}")
+    m = np.ascontiguousarray(np.asarray(m, np.float64)[:2, :3])
+    ow, oh = int(dsize[0]), int(dsize[1])
+    out = np.empty((oh, ow, 3), np.uint8)
+    if library("host_augment").lpr_cv_warp_affine(
+            img.ctypes.data, img.shape[0], img.shape[1], m.ctypes.data,
+            out.ctypes.data, oh, ow, int(border)) != 0:
+        raise ValueError(f"cv_warp_affine: bad sizes {img.shape} -> "
+                         f"{(oh, ow)}")
+    return out
+
+
+def cv_hsv_lut(img: np.ndarray, lut_h: np.ndarray, lut_s: np.ndarray,
+               lut_v: np.ndarray) -> np.ndarray:
+    """``cvtColor(merge(LUT(h, lut_h), LUT(s, lut_s), LUT(v, lut_v)),
+    HSV2RGB)`` of ``cvtColor(img, RGB2HSV)``: a new uint8 (H, W, 3) RGB
+    image (``csrc/host_augment.cc``)."""
+    out = _u8_image(img, "cv_hsv_lut").copy()
+    if out.shape[2] != 3:
+        raise ValueError(f"cv_hsv_lut: expected 3 channels, got {out.shape}")
+    luts = [np.ascontiguousarray(l, np.uint8) for l in (lut_h, lut_s, lut_v)]
+    if any(l.shape != (256,) for l in luts):
+        raise ValueError("cv_hsv_lut: each table holds 256 uint8 entries")
+    library("host_augment").lpr_cv_hsv_lut(
+        out.ctypes.data, out.shape[0] * out.shape[1],
+        *[l.ctypes.data for l in luts])
     return out

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 Tensor = torch.Tensor
@@ -32,3 +34,33 @@ def box_iou(a: Tensor, b: Tensor) -> Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / union.clamp(min=1e-9)
+
+
+def bbox_ciou(pred: Tensor, target: Tensor, eps: float = 1e-7) -> Tensor:
+    """CIoU between aligned boxes in xywh (cx, cy, w, h), the YOLO box loss
+    (``lpr_tpu/ops/boxes.py`` ``bbox_ciou``).  ``alpha`` carries no
+    gradient, as the JAX function's ``stop_gradient``; the clamps at 0 are
+    ``torch.maximum`` against a zero tensor, which splits the gradient at a
+    tie as ``jnp.maximum`` does."""
+    zero = torch.zeros((), dtype=pred.dtype, device=pred.device)
+    px, py, pw, ph = pred.unbind(-1)
+    tx, ty, tw, th = target.unbind(-1)
+    p_x1, p_x2 = px - pw / 2, px + pw / 2
+    p_y1, p_y2 = py - ph / 2, py + ph / 2
+    t_x1, t_x2 = tx - tw / 2, tx + tw / 2
+    t_y1, t_y2 = ty - th / 2, ty + th / 2
+    iw = torch.maximum(torch.minimum(p_x2, t_x2) - torch.maximum(p_x1, t_x1),
+                       zero)
+    ih = torch.maximum(torch.minimum(p_y2, t_y2) - torch.maximum(p_y1, t_y1),
+                       zero)
+    inter = iw * ih
+    union = pw * ph + tw * th - inter + eps
+    iou = inter / union
+    cw = torch.maximum(p_x2, t_x2) - torch.minimum(p_x1, t_x1)
+    ch = torch.maximum(p_y2, t_y2) - torch.minimum(p_y1, t_y1)
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = (tx - px) ** 2 + (ty - py) ** 2
+    v = (4 / math.pi ** 2) * (torch.atan(tw / (th + eps))
+                              - torch.atan(pw / (ph + eps))) ** 2
+    alpha = (v / (v - iou + (1 + eps))).detach()
+    return iou - (rho2 / c2 + v * alpha)

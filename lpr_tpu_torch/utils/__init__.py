@@ -1,1 +1,2 @@
-"""Plain-Python utilities: the local run-artifact registry."""
+"""Plain-Python utilities: the local run-artifact registry, the training
+guards, hooks, loggers, AutoAnchor and hyperparameter evolution."""

@@ -181,10 +181,11 @@ def test_resize_pil_bilinear_matches_pillow(src_hw, out_hw):
 
 
 def test_host_libraries_build_with_their_flags():
-    """Both sources build with g++ (-ffp-contract=off), host_decode linked
-    against libjpeg and libpng, and each library's name hashes its flags."""
+    """Every source builds with g++ (-ffp-contract=off), host_decode
+    linked against libjpeg and libpng, and each library's name hashes its
+    flags."""
     libs = _build.build_host()
-    assert sorted(libs) == ["host_decode", "host_letterbox"]
+    assert sorted(libs) == ["host_augment", "host_decode", "host_letterbox"]
     assert "-ffp-contract=off" in _build.host_command("host_letterbox", "x")
     assert _build.host_command("host_decode", "x")[-3:] == [
         "-ljpeg", "-lpng16", "-lpthread"]

@@ -159,12 +159,20 @@ def test_train_cyclegan_cli_writes_checkpoints(tmp_path):
 
 
 def test_bench_train_step_prints_json(capsys, monkeypatch):
-    """The tool's line on the CPU, at batch 2 in place of 128."""
+    """The tool's lines on the CPU (det, then lpsr, as the JAX tool's
+    default), the LPSR at batch 2 in place of 128 and the detector at
+    batch 2 and 64x64 in place of 16 and 640x640."""
     from lpr_tpu_torch.tools import bench_train_step
 
     monkeypatch.setattr(bench_train_step, "LPSR_BATCH", 2)
+    monkeypatch.setattr(bench_train_step, "DET_BATCH", 2)
+    monkeypatch.setattr(bench_train_step, "DET_HW", (64, 64))
     assert bench_train_step.main(["--device", "cpu", "--iters", "1"]) == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    lines = capsys.readouterr().out.strip().splitlines()
+    det, rec = json.loads(lines[-2]), json.loads(lines[-1])
     assert rec["model"] == "lpsr_192x32_b2_f32"
     assert rec["peak_fraction"] is None and rec["device"].startswith("CPU")
     assert rec["flops_per_step"] > 0 and np.isfinite(rec["loss"])
+    assert det["model"] == "det_yolov5s_nc11_64x64_b2_f32"
+    assert det["flops_per_step"] > 0 and np.isfinite(det["loss"])
+    assert det["device_busy_ms"] is None and det["top_kernels"] == []
