@@ -170,11 +170,28 @@ Phases, each printing one line with its elapsed seconds:
    tree's labels on the card and on the CPU (DET_VAL_*); cli/train_yolo
    for one epoch on the tree (batch 16, --cache), whose last.npz must
    load through load_plate_detector and run.  No kernel is on this path.
-13. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
+13. parallel — data parallelism on the card: NCCL started at world size
+   1 (one rank a card; a file:// store in a temporary directory), the
+   LPSR trainer (phase train's batch 128) and the detector trainer
+   (train_det's yolov5s at 640x640, batch 16, past warm-up) with
+   make_mesh() against the same trainers without a mesh for two steps
+   (the losses within 2e-6 relative, the weights after one step within
+   1e-5, their sum after two within 1e-5 relative: the CPU parity bounds),
+   each step timed with and without the all-reduces, LPSR's validate
+   through K2 float32 on both; PlateRecognizer with
+   make_mesh(devices=[card, card]) (two replicas, each with its own K1 and
+   K2 packs and CUDA graph) against the unsharded recognizer at the
+   slice's configuration (plate_valid and classes equal, boxes within 0.5
+   px, strings equal; K1 and K2 launched twice a step), both timed;
+   autobatch for the plate detector at 736x1280 bf16 and LPSR at 32x192
+   bf16, each chosen batch run and its measured peak within its budget
+   (lpr_tpu_torch.tools.validate_autobatch, with the marginal bytes a
+   sample over the estimate).
+14. serving — lpr_tpu_torch.tools.bench_serving, briefly (16 clients x 4
    requests, max_batch 8), with frames, with the pool, over HTTP and, where
    host_decode built, with files: its JSON lines (client frames/s, latency
    p50/p99, mean batch, the card).
-14. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
+15. bench  — lpr_tpu_torch.bench (batch 32, 30 chained steps, BENCH_REPS=2)
    with BENCH_PACKED=1 and =0, and BENCH_PACKED=1 with BENCH_INT8=1 (which
    must launch I1's two kernels and I2): its JSON lines (frames/s, flops_per_frame,
    mfu_pct against the bf16 peak, the card).
@@ -1457,6 +1474,291 @@ def train_det_phase(card, dev="cuda"):
 _T0 = time.perf_counter()
 
 
+# The parallel phase: the trainers over NCCL at world size 1 (the machine
+# has one card; NCCL takes one rank a card) against the same trainers
+# without a mesh, at phase train's and train_det's sizes, two steps each;
+# the recognizer with two replicas on the card against the unsharded one;
+# autobatch's choices run on the card.  Limits, set before the first run:
+# - the trainers: the CPU parity bounds of tests/test_torch_parallel.py
+#   (tests/test_multiproc.py's): the losses within PAR_LOSS_RTOL relative,
+#   every weight after the first step within PAR_PARAM_TOL, the weights'
+#   sum after the second within PAR_PARAM_TOL relative;
+# - the sharded recognizer: the slice's bounds, plate_valid and classes
+#   equal, boxes within PAR_BOX_TOL px, strings equal;
+# - autobatch: each chosen batch's measured peak within its budget.
+PAR_LPSR_BATCH = LPSR_TRAIN_BATCH
+PAR_DET_BATCH = DET_BATCH
+PAR_DET_HW = (640, 640)
+PAR_TIMED_STEPS = 5
+PAR_LOSS_RTOL = 2e-6
+PAR_PARAM_TOL = 1e-5
+PAR_BOX_TOL = 0.5
+PAR_AUTOBATCH = (("det", DET_HW), ("lpsr", LPSR_HW))
+
+
+def parallel_phase(card, counts_to_zero, counts, dev="cuda"):
+    """Phase parallel: NCCL started at world size 1 with a ``file://``
+    store; LPSRTrainer and YoloTrainer with ``make_mesh()`` against the
+    same trainers without a mesh (two steps, then the step times with and
+    without the all-reduces); PlateRecognizer with
+    ``make_mesh(devices=[card, card])`` (two replicas, K1 and K2 in each)
+    against the unsharded recognizer at the slice's configuration;
+    autobatch for the plate detector and LPSR, each chosen batch run
+    (``tools/validate_autobatch.py``).  Returns a note for the phase line.
+    ``dev="cpu"`` (gloo, smaller module constants) rehearses it where there
+    is no card."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lpr_tpu_torch.models.lpsr import LPSRConfig, load_lpsr
+    from lpr_tpu_torch.models.yolo import (load_char_ocr_npz,
+                                           load_plate_detector, yolov5)
+    from lpr_tpu_torch.parallel.mesh import make_mesh
+    from lpr_tpu_torch.parallel.multiproc import init_group
+    from lpr_tpu_torch.pipeline.recognizer import (PipelineConfig,
+                                                   PlateRecognizer, to_host)
+    from lpr_tpu_torch.tools import bench_train_step, validate_autobatch
+    from lpr_tpu_torch.tools.synth import synth_frames
+    from lpr_tpu_torch.train.lpsr import LPSRTrainer
+    from lpr_tpu_torch.train.yolo import YoloTrainConfig, YoloTrainer
+    from lpr_tpu_torch.weights.checkpoint import load_state
+
+    note = {}
+    device = torch.device(dev)
+    tmp = tempfile.mkdtemp(prefix="lpr_parallel_")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def step_ms(step, n):
+        """Median host ms of ``n`` calls, each ended by a synchronize."""
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    def fingerprint(params):
+        return sum(float(v.detach().double().sum()) for v in params.values())
+
+    def compare(label, losses, one, two):
+        """Losses (mesh, plain) per step; weights after step one and two
+        of each side."""
+        for i, (a, b) in enumerate(losses):
+            if not abs(a - b) <= PAR_LOSS_RTOL * abs(b):
+                raise AssertionError(f"{label}: step {i} loss {a} with the "
+                                     f"mesh, {b} without")
+        err = max(float((one[0][k].detach() - one[1][k].detach()).abs()
+                        .max()) for k in one[1])
+        fp = (fingerprint(two[0]), fingerprint(two[1]))
+        if not (err <= PAR_PARAM_TOL
+                and abs(fp[0] - fp[1]) <= PAR_PARAM_TOL * max(1.0,
+                                                              abs(fp[1]))):
+            raise AssertionError(f"{label}: weights after one step differ "
+                                 f"by {err}, sums after two {fp}")
+        return err, fp
+
+    try:
+        # 1. NCCL (gloo on the CPU) at world size 1
+        t0 = time.perf_counter()
+        group = init_group("file://" + os.path.join(tmp, "store"), 1, 0,
+                           dev)
+        mesh = make_mesh() if dev == "cuda" else make_mesh(devices=[dev])
+        if mesh.group is not group or mesh.devices[0].type != device.type:
+            raise AssertionError(f"make_mesh() gave {mesh}")
+        backend = dist.get_backend()
+        print(f"parallel group: {backend} at world size "
+              f"{dist.get_world_size()}, mesh {mesh.devices} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+        # 2. LPSR at phase train's batch: two steps with and without the
+        # mesh from the same weights and batches; then the step's time
+        # with and without the all-reduce; validate through K2 float32
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        lr_b = [torch.rand((PAR_LPSR_BATCH, *LPSR_HW, 3), generator=g,
+                           device=dev) for _ in range(2)]
+        hr_b = [torch.rand((PAR_LPSR_BATCH, *LPSR_HW, 1), generator=g,
+                           device=dev) for _ in range(2)]
+        init, _ = load_state(CKPT_LPSR)
+        sides, losses, one = {}, [], []
+        for side, m in (("mesh", mesh), ("plain", None)):
+            tr = LPSRTrainer(lpsr_cfg=LPSRConfig(), device=dev, mesh=m)
+            st = tr.init(params=init)
+            ls = []
+            for i in range(2):
+                st, loss = tr.step(st, lr_b[i], hr_b[i])
+                ls.append(float(loss))
+                if i == 0:
+                    one.append({k: v.detach().clone()
+                                for k, v in st["params"].items()})
+            sides[side] = (tr, st)
+            losses.append(ls)
+        err, fp = compare("LPSR", list(zip(*losses)), one,
+                          [sides[s][1]["params"] for s in ("mesh", "plain")])
+        ms = {s: step_ms(lambda s=s: sides[s][0].step(sides[s][1], lr_b[0],
+                                                      hr_b[0]),
+                         PAR_TIMED_STEPS) for s in ("mesh", "plain")}
+        counts_to_zero()
+        val = [(lr_b[1][:LPSR_VAL_BATCH], hr_b[1][:LPSR_VAL_BATCH])]
+        psnr = {s: sides[s][0].validate(sides[s][1], val)
+                for s in ("mesh", "plain")}
+        k2 = counts()["lpsr"]
+        if dev == "cuda" and k2 != 2:
+            raise AssertionError(f"LPSR validate launched K2 {k2} times, "
+                                 f"not once a side")
+        if abs(psnr["mesh"] - psnr["plain"]) > 1e-6:
+            raise AssertionError(f"validate PSNR {psnr}")
+        print(f"parallel LPSR trainer at batch {PAR_LPSR_BATCH}: losses "
+              f"{losses[0]} with the mesh, {losses[1]} without; weights "
+              f"after one step max_abs_err {err} (< {PAR_PARAM_TOL}), sums "
+              f"after two {fp}; step {ms['mesh']:.3f} ms with the "
+              f"all-reduce, {ms['plain']:.3f} ms without (median of "
+              f"{PAR_TIMED_STEPS}); validate PSNR {psnr['mesh']} on both, "
+              f"K2 float32 launches {k2} ({time.perf_counter() - t0:.2f} s)"
+              f" on {card}", flush=True)
+        note["lpsr step ms (mesh, plain)"] = (round(ms["mesh"], 3),
+                                              round(ms["plain"], 3))
+        del sides, one
+
+        # 3. the detector at train_det's batch and size, past warm-up
+        t0 = time.perf_counter()
+        x, lab = bench_train_step.det_batch(PAR_DET_BATCH, hw=PAR_DET_HW,
+                                            seed=SEED)
+        x1, lab1 = bench_train_step.det_batch(PAR_DET_BATCH, hw=PAR_DET_HW,
+                                              seed=SEED + 1)
+        batches = [(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+                   for a, b in ((x, lab), (x1, lab1))]
+        sides, losses, one = {}, [], []
+        w0 = None
+        for side, m in (("mesh", mesh), ("plain", None)):
+            tr = YoloTrainer(yolov5("s", nc=bench_train_step.DET_NC),
+                             YoloTrainConfig(epochs=10), steps_per_epoch=100,
+                             mesh=m, device=dev)
+            st = tr.init(torch.Generator().manual_seed(SEED), params=w0)
+            if w0 is None:
+                w0 = {k: v.detach().cpu().clone()
+                      for k, v in st["params"].items()}
+            st["step"] = DET_CMP_STEP
+            ls = []
+            for i in range(2):
+                st, total, _ = tr.step(st, *batches[i])
+                ls.append(float(total))
+                if i == 0:
+                    one.append({k: v.detach().clone()
+                                for k, v in st["params"].items()})
+            sides[side] = (tr, st)
+            losses.append(ls)
+        err, fp = compare("detector", list(zip(*losses)), one,
+                          [sides[s][1]["params"] for s in ("mesh", "plain")])
+        ms = {s: step_ms(lambda s=s: sides[s][0].step(sides[s][1],
+                                                      *batches[0]),
+                         PAR_TIMED_STEPS) for s in ("mesh", "plain")}
+        if dev == "cuda":   # where the all-reduces' time goes
+            for s in ("mesh", "plain"):
+                prof = bench_train_step.profile_steps(
+                    lambda s=s: sides[s][0].step(sides[s][1], *batches[0]),
+                    device)
+                print(f"parallel detector step profile, {s}: "
+                      f"{json.dumps(prof)}", flush=True)
+        print(f"parallel detector trainer (yolov5s nc="
+              f"{bench_train_step.DET_NC}, {PAR_DET_HW[0]}x{PAR_DET_HW[1]}, "
+              f"batch {PAR_DET_BATCH}, float32, step {DET_CMP_STEP}): "
+              f"losses {losses[0]} with the mesh (global batch statistics "
+              f"and positive count), {losses[1]} without; weights after one "
+              f"step max_abs_err {err} (< {PAR_PARAM_TOL}), sums after two "
+              f"{fp}; step {ms['mesh']:.3f} ms with the all-reduces, "
+              f"{ms['plain']:.3f} ms without (median of {PAR_TIMED_STEPS})"
+              f" ({time.perf_counter() - t0:.2f} s) on {card}", flush=True)
+        note["det step ms (mesh, plain)"] = (round(ms["mesh"], 3),
+                                             round(ms["plain"], 3))
+        del sides, one, batches
+
+        # 4. the recognizer with two replicas on the card
+        t0 = time.perf_counter()
+        frames = synth_frames(BATCH, FRAME_HW, SEED)
+        dtype = torch.bfloat16 if dev == "cuda" else torch.float32
+        recs, outs, launches, times = {}, {}, {}, {}
+        for side, m in (("mesh", make_mesh(devices=[dev, dev])),
+                        ("plain", None)):
+            char, _, ck = load_char_ocr_npz(CKPT_CHAR, device=dev)
+            r = PlateRecognizer(
+                load_plate_detector(CKPT_PLATE, device=dev), char,
+                load_lpsr(CKPT_LPSR, device=dev),
+                PipelineConfig(det_hw=DET_HW, dtype=dtype),
+                char_names=ck.names, device=dev, mesh=m)
+            # the capture on the batch reversed, so that each replica's
+            # replay below takes other frames than its graph was made on
+            r.step_raw(np.ascontiguousarray(frames[::-1]))
+            counts_to_zero()
+            o = r.step_raw(frames)
+            sync()
+            launches[side] = counts()
+            outs[side] = to_host(o)
+            times[side] = step_ms(lambda r=r: r.step_raw(frames),
+                                  PAR_TIMED_STEPS)
+            recs[side] = r
+        a, b = outs["mesh"], outs["plain"]
+        texts = [[[(p["text"], p["text_sr"]) for p in f]
+                  for f in recs[s].assemble(outs[s])] for s in outs]
+        box_err = float(np.abs(a["plate_boxes"] - b["plate_boxes"])
+                        [b["plate_valid"]].max(initial=0.0))
+        if dev == "cuda" and (launches["mesh"]["yolo_front"] != 2
+                              or launches["mesh"]["lpsr"] != 2):
+            raise AssertionError(f"the two replicas launched "
+                                 f"{launches['mesh']}")
+        if not (np.array_equal(a["plate_valid"], b["plate_valid"])
+                and np.array_equal(a["plate_classes"], b["plate_classes"])
+                and box_err <= PAR_BOX_TOL and texts[0] == texts[1]
+                and np.isfinite(a["sr"]).all()):
+            raise AssertionError(f"the sharded recognizer differs: boxes "
+                                 f"{box_err}, texts {texts}")
+        print(f"parallel recognizer, 2 replicas on {dev} (batch {BATCH}, "
+              f"{FRAME_HW[0]}p, det {DET_HW[0]}x{DET_HW[1]}, {dtype}, "
+              f"frozen): "
+              f"{int(b['plate_valid'].sum())} plates, valid, classes and "
+              f"strings equal to the unsharded step's, boxes max_abs_err "
+              f"{box_err} (< {PAR_BOX_TOL}); ms a batch {times['mesh']:.3f} "
+              f"sharded, {times['plain']:.3f} unsharded (median of "
+              f"{PAR_TIMED_STEPS}, host clock around synchronize); launches "
+              f"a step sharded {launches['mesh']}, unsharded "
+              f"{launches['plain']} ({time.perf_counter() - t0:.2f} s) on "
+              f"{card}", flush=True)
+        note["recognizer ms (2 replicas, 1)"] = (round(times["mesh"], 3),
+                                                 round(times["plain"], 3))
+        del recs
+
+        # 5. autobatch: the chosen batch runs within its budget
+        t0 = time.perf_counter()
+        for model, hw in PAR_AUTOBATCH:
+            rec = validate_autobatch.validate(
+                model, hw, torch.bfloat16 if dev == "cuda"
+                else torch.float32, [4, 16, 64], device)
+            print(f"parallel autobatch {model} {hw}: {json.dumps(rec)}",
+                  flush=True)
+            if dev == "cuda" and not rec["fits"]:
+                raise AssertionError(f"autobatch's batch {rec['autobatch']} "
+                                     f"of {model} peaked at "
+                                     f"{rec['chosen_peak_bytes']} over its "
+                                     f"budget {rec['budget_bytes']}")
+            note[f"autobatch {model}"] = rec.get("autobatch")
+        print(f"parallel autobatch: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return note
+
+
 def phase(name: str, t_start: float, note: str = "") -> None:
     print(f"phase {name}: ok {time.perf_counter() - t_start:.2f} s "
           f"(total {time.perf_counter() - _T0:.2f} s){note}", flush=True)
@@ -2614,7 +2916,12 @@ def main() -> int:
     train_det_note = train_det_phase(card)
     phase("train_det", t, f"; {train_det_note} on {card}")
 
-    # ---- 13. serving -----------------------------------------------------
+    # ---- 13. parallel ----------------------------------------------------
+    t = time.perf_counter()
+    parallel_note = parallel_phase(card, counts_to_zero, counts)
+    phase("parallel", t, f"; {parallel_note} on {card}")
+
+    # ---- 14. serving -----------------------------------------------------
     from lpr_tpu_torch.tools import bench_serving
 
     t = time.perf_counter()
@@ -2626,7 +2933,7 @@ def main() -> int:
             raise AssertionError(f"bench_serving {m}")
     phase("serving", t, f"; modes {[m or ['frames'] for m in modes]}")
 
-    # ---- 14. bench -------------------------------------------------------
+    # ---- 15. bench -------------------------------------------------------
     from lpr_tpu_torch import bench
 
     t = time.perf_counter()

@@ -13,9 +13,19 @@ Each run is recorded in the run registry (:mod:`lpr_tpu_torch.utils
 ``latest`` and ``best.npz`` as ``best``; per-epoch metrics go to
 ``results.csv`` in ``--ckpt-dir`` (:mod:`lpr_tpu_torch.utils.loggers`).
 ``--evolve`` writes ``evolve.csv`` and ``hyp_evolve.yaml`` (the text
-``yaml.safe_dump`` writes, produced without the yaml package).  Data
-parallelism (``--data-parallel``, or ``WORLD_SIZE`` above 1) is not
-ported yet and raises.
+``yaml.safe_dump`` writes, produced without the yaml package).
+
+Data parallelism: one process a device, started with the env contract of
+:mod:`lpr_tpu_torch.parallel.multiproc` (``COORDINATOR_ADDRESS``,
+``WORLD_SIZE``, ``RANK``).  ``--batch-size`` is then the global batch;
+each rank trains a strided, equal-length subset of the images
+(``[:n][r::w]``) with the global batch statistics and positive count
+(:class:`~lpr_tpu_torch.train.yolo.YoloTrainer` with a mesh), and every
+rank validates the whole set, so early stopping and ``--evolve``'s
+choices agree across ranks.  Rank 0 alone writes checkpoints, plots,
+``evolve.csv``, ``hyp_evolve.yaml`` and the registry.
+``--data-parallel`` without that env (``WORLD_SIZE`` above 1) raises:
+one process drives one card.
 """
 
 from __future__ import annotations
@@ -23,10 +33,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-
-NOT_PORTED = ("data-parallel detector training is not ported yet: it comes "
-              "with the port of lpr_tpu/parallel (ROADMAP section 1, item "
-              "7); run on one card")
 
 DEFAULT_HYP = {
     "lr0": 0.01, "lrf": 0.01, "momentum": 0.937,
@@ -66,7 +72,10 @@ def parse_args(argv=None):
     p.add_argument("--cache", action="store_true",
                    help="decode images into RAM once (reference --cache ram)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (raises)")
+                   help="data parallelism: needs the env "
+                        "COORDINATOR_ADDRESS/WORLD_SIZE/RANK with "
+                        "WORLD_SIZE above 1 (one process a card), which "
+                        "alone also turns it on")
     p.add_argument("--autoanchor", action="store_true",
                    help="evolve anchors from the train labels first")
     p.add_argument("--evolve", type=int, default=0, metavar="N",
@@ -85,43 +94,48 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _yaml_float(v: float) -> str:
-    """A float as PyYAML's ``represent_float`` writes it."""
-    if v != v:
-        return ".nan"
-    if v in (float("inf"), float("-inf")):
-        return ".inf" if v > 0 else "-.inf"
-    s = repr(float(v)).lower()
-    if "." not in s and "e" in s:
-        s = s.replace("e", ".0e", 1)
-    return s
-
-
 def hyp_yaml(fitness: float, hyp) -> str:
     """``yaml.safe_dump({"fitness": fitness, "hyp": hyp})`` for float
     values and plain identifier keys: keys sorted, block style."""
-    lines = [f"fitness: {_yaml_float(fitness)}", "hyp:"]
-    lines += [f"  {k}: {_yaml_float(float(hyp[k]))}" for k in sorted(hyp)]
-    return "\n".join(lines) + "\n"
+    from lpr_tpu_torch.config import dump
+
+    return dump({"fitness": float(fitness),
+                 "hyp": {k: float(hyp[k]) for k in sorted(hyp)}})
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_parallel or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit(NOT_PORTED)
     import numpy as np
 
     from lpr_tpu_torch.data.yolo_data import YoloAugConfig, YoloDataset
     from lpr_tpu_torch.device import resolve_device
     from lpr_tpu_torch.models.yolo import (_SIZE_PRESETS, build_yolo,
                                            char_ocr_spec, yolov5_spec)
+    from lpr_tpu_torch.parallel.mesh import make_mesh
+    from lpr_tpu_torch.parallel.multiproc import (DATA_PARALLEL_NEEDS_ENV,
+                                                  initialize_from_env,
+                                                  is_main_process,
+                                                  rank_share)
     from lpr_tpu_torch.train.yolo import (YoloTrainConfig, YoloTrainer,
                                           fit_yolo, fitness, validate_map)
     from lpr_tpu_torch.train.yolo_loss import YoloLossConfig
     from lpr_tpu_torch.utils.callbacks import Callbacks
     from lpr_tpu_torch.utils.loggers import Loggers
 
+    if args.data_parallel and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        raise SystemExit(DATA_PARALLEL_NEEDS_ENV)
     dev = resolve_device(args.device)
+    dist = initialize_from_env(dev)
+    if dist and dev.type == "cuda":
+        import torch
+
+        dev = torch.device("cuda", torch.cuda.current_device())
+    main_proc = is_main_process()
+
+    def log(msg):
+        if main_proc:
+            print(msg, flush=True)
+
     if len(args.imgsz) not in (1, 2):
         raise SystemExit("--imgsz takes one int (square) or two (H W)")
     hw = (tuple(args.imgsz * 2)[:2] if len(args.imgsz) == 1
@@ -134,11 +148,9 @@ def main(argv=None):
                          args.val_label_dir or args.label_dir, hw,
                          max_labels=args.max_labels, augment=False,
                          cache_images=args.cache)
-    print(f"train {len(train_ds)} images, val {len(val_ds)} images",
-          flush=True)
+    log(f"train {len(train_ds)} images, val {len(val_ds)} images")
     if args.cache:
-        print(f"cached {train_ds.cache_all():.2f} GB of decoded images in "
-              f"RAM", flush=True)
+        log(f"cached {train_ds.cache_all():.2f} GB of decoded images in RAM")
 
     ckpt_anchors = None
     if args.arch == "char_ocr":
@@ -169,8 +181,7 @@ def main(argv=None):
             nl = len(strides)
             ckpt_anchors = (evolved.reshape(nl, n_anchors // nl, 2)
                             / np.asarray(strides, np.float32)[:, None, None])
-            print("evolved anchors (grid units):", ckpt_anchors.tolist(),
-                  flush=True)
+            log(f"evolved anchors (grid units): {ckpt_anchors.tolist()}")
 
     model = build_yolo(spec, ckpt_anchors=ckpt_anchors, strides=strides)
 
@@ -202,6 +213,10 @@ def main(argv=None):
         return aug, loss, tcfg
 
     batch_size = args.batch_size
+    if dist:     # the global batch; the RAM cache is keyed by path
+        train_ds.paths, batch_size = rank_share(train_ds.paths,
+                                                args.batch_size)
+    mesh = make_mesh(devices=[dev]) if dist else None
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
     os.makedirs(args.ckpt_dir, exist_ok=True)
 
@@ -210,7 +225,7 @@ def main(argv=None):
         from lpr_tpu_torch.weights.checkpoint import load_state
 
         init_params = load_state(args.init_weights)[0]
-        print(f"warm-started from {args.init_weights}", flush=True)
+        log(f"warm-started from {args.init_weights}")
 
     def train_batches():
         return train_ds.batches(batch_size, workers=args.workers)
@@ -226,74 +241,90 @@ def main(argv=None):
             aug_cfg, loss_cfg, tcfg = make_cfgs(cand)
             train_ds.aug = aug_cfg
             t = YoloTrainer(model, tcfg, loss_cfg=loss_cfg,
-                            steps_per_epoch=steps_per_epoch, device=dev)
+                            steps_per_epoch=steps_per_epoch, mesh=mesh,
+                            device=dev)
             state = fit_yolo(t, train_batches, val_batches,
                              epochs=args.epochs, ckpt_dir=None,
                              patience=args.patience, logger=lambda m: None,
                              init_params=init_params)
+            # every rank validates the whole set with the same EMA weights,
+            # and the mutations are seeded, so every rank's evolution
+            # keeps in step without a broadcast
             metrics = validate_map(model, state["ema"], val_batches(),
                                    device=dev)
             fit = fitness(metrics)
-            print(f"  candidate fitness {fit:.4f} (mAP50 "
-                  f"{metrics['map50']:.4f} mAP {metrics['map']:.4f})",
-                  flush=True)
+            log(f"  candidate fitness {fit:.4f} (mAP50 "
+                f"{metrics['map50']:.4f} mAP {metrics['map']:.4f})")
             return fit
 
         csv_path = os.path.join(args.ckpt_dir, "evolve.csv")
-        print(f"evolving {args.evolve} generations of {args.epochs}-epoch "
-              f"trainings -> {csv_path}", flush=True)
+        log(f"evolving {args.evolve} generations of {args.epochs}-epoch "
+            f"trainings -> {csv_path}")
         hyp, best_fit = evolve(hyp, train_and_eval, generations=args.evolve,
-                               seed=args.evolve_seed, log_path=csv_path)
-        with open(os.path.join(args.ckpt_dir, "hyp_evolve.yaml"), "w") as f:
-            f.write(hyp_yaml(float(best_fit), hyp))
-        print(f"evolution done: best fitness {best_fit:.4f}; training the "
-              f"final model with the winning hyps", flush=True)
+                               seed=args.evolve_seed,
+                               log_path=csv_path if main_proc else None)
+        if main_proc:
+            with open(os.path.join(args.ckpt_dir, "hyp_evolve.yaml"),
+                      "w") as f:
+                f.write(hyp_yaml(float(best_fit), hyp))
+        log(f"evolution done: best fitness {best_fit:.4f}; training the "
+            f"final model with the winning hyps")
 
     aug_cfg, loss_cfg, tcfg = make_cfgs(hyp)
     train_ds.aug = aug_cfg
     trainer = YoloTrainer(model, tcfg, loss_cfg=loss_cfg,
-                          steps_per_epoch=steps_per_epoch, device=dev)
-    loggers = Loggers(args.ckpt_dir)
-    callbacks = Callbacks()
-    callbacks.register_action(
-        "on_fit_epoch_end", "csv",
-        lambda epoch, m: loggers.log({"map50": m["map50"], "map": m["map"],
-                                      "fitness": fitness(m)}, epoch))
+                          steps_per_epoch=steps_per_epoch, mesh=mesh,
+                          device=dev)
+    callbacks = run = None
+    if main_proc:
+        loggers = Loggers(args.ckpt_dir)
+        callbacks = Callbacks()
+        callbacks.register_action(
+            "on_fit_epoch_end", "csv",
+            lambda epoch, m: loggers.log({"map50": m["map50"],
+                                          "map": m["map"],
+                                          "fitness": fitness(m)}, epoch))
 
-    # label statistics before training (reference plot_labels); None
-    # where matplotlib does not import
-    from lpr_tpu_torch.eval.plots import plot_labels
+        # label statistics before training (reference plot_labels); None
+        # where matplotlib does not import
+        from lpr_tpu_torch.eval.plots import plot_labels
 
-    lab_rows = []
-    for i in range(min(len(train_ds), 1000)):
-        lab = np.asarray(train_ds._load_raw(i)[1])
-        if lab.ndim == 2 and lab.shape[1] == 5 and len(lab):
-            lab_rows.append(lab)
-    if lab_rows:
-        plot_labels(np.concatenate(lab_rows),
-                    os.path.join(args.ckpt_dir, "labels.png"))
+        lab_rows = []
+        for i in range(min(len(train_ds), 1000)):
+            lab = np.asarray(train_ds._load_raw(i)[1])
+            if lab.ndim == 2 and lab.shape[1] == 5 and len(lab):
+                lab_rows.append(lab)
+        if lab_rows:
+            plot_labels(np.concatenate(lab_rows),
+                        os.path.join(args.ckpt_dir, "labels.png"))
 
-    from lpr_tpu_torch.utils.registry import RunRegistry
+        from lpr_tpu_torch.utils.registry import RunRegistry
 
-    run = RunRegistry(args.runs_dir).new_run(
-        args.run_project, config=vars(args),
-        dataset_dirs=[d for d in (args.img_dir, args.label_dir,
-                                  args.val_img_dir, args.val_label_dir)
-                      if d])
-    print(f"run {run.id} (dataset {run.manifest['dataset_fingerprint']})",
-          flush=True)
+        run = RunRegistry(args.runs_dir).new_run(
+            args.run_project, config=vars(args),
+            dataset_dirs=[d for d in (args.img_dir, args.label_dir,
+                                      args.val_img_dir, args.val_label_dir)
+                          if d])
+        log(f"run {run.id} (dataset {run.manifest['dataset_fingerprint']})")
 
     state = fit_yolo(trainer, train_batches, val_batches,
-                     epochs=args.epochs, ckpt_dir=args.ckpt_dir,
-                     patience=args.patience,
-                     logger=lambda m: print(m, flush=True),
+                     epochs=args.epochs,
+                     ckpt_dir=args.ckpt_dir if main_proc else None,
+                     patience=args.patience, logger=log,
                      callbacks=callbacks, init_params=init_params)
-    for fname, aliases in (("last.npz", ("latest",)),
-                           ("best.npz", ("best",))):
-        p = os.path.join(args.ckpt_dir, fname)
-        if os.path.exists(p):
-            run.log_artifact(p, aliases=aliases)
-    run.finish({"epochs": args.epochs, **state.get("summary", {})})
+    if run is not None:
+        for fname, aliases in (("last.npz", ("latest",)),
+                               ("best.npz", ("best",))):
+            p = os.path.join(args.ckpt_dir, fname)
+            if os.path.exists(p):
+                run.log_artifact(p, aliases=aliases)
+        run.finish({"epochs": args.epochs, **state.get("summary", {})})
+    if dist:
+        # every rank returns once rank 0 has recorded the run, so that a
+        # next run's --resume-run finds it on every rank
+        import torch.distributed as tdist
+
+        tdist.barrier()
     return state
 
 

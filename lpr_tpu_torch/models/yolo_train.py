@@ -19,6 +19,14 @@ standalone batch norm (eps 1e-5) keeps its running statistics in training,
 as the JAX layer does.  Gradients reach the HWIO leaves through every
 rearrangement, the S2D stem's weight included.  No kernel is on this
 route.
+
+Under a process group (``train_forward(..., group=)``) the statistics are
+the global batch's, as JAX's sharded step computes them
+(``lpr_tpu/models/yolo.py:102-103``): the per-channel sums and the count
+are all-reduced, then the centred squares about the global mean (two
+passes, as ``jnp.var``), each through
+:func:`~lpr_tpu_torch.parallel.collectives.all_reduce_sum`, whose backward
+all-reduces the gradient.
 """
 
 from __future__ import annotations
@@ -46,9 +54,27 @@ class TrainPass:
     """One training forward: the flat state's tensors ``t`` and the batch
     statistics that each conv's batch norm took (``stats``, by conv key)."""
 
-    def __init__(self, tensors: Dict[str, Tensor]):
+    def __init__(self, tensors: Dict[str, Tensor], group=None):
         self.t = tensors
+        self.group = group
         self.stats: Dict[str, Tuple[Tensor, Tensor]] = {}
+
+    def batch_stats(self, y32: Tensor) -> Tuple[Tensor, Tensor]:
+        """The mean and biased variance over (N, H, W): this batch's, or
+        under a process group the global batch's."""
+        if self.group is None:
+            return (y32.mean(dim=(0, 1, 2)),
+                    y32.var(dim=(0, 1, 2), unbiased=False))
+        from lpr_tpu_torch.parallel.collectives import all_reduce_sum
+
+        n = y32.new_full((1,), y32.numel() // y32.shape[-1])
+        sn = all_reduce_sum(torch.cat([y32.sum(dim=(0, 1, 2)), n]),
+                            self.group)
+        mean = sn[:-1] / sn[-1]
+        d = y32 - mean
+        var = all_reduce_sum((d * d).sum(dim=(0, 1, 2)),
+                             self.group) / sn[-1]
+        return mean, var
 
     def conv(self, key: str, x: Tensor, *, k: int, stride=1, pad=None,
              groups: int = 1, act: str = "silu",
@@ -59,9 +85,7 @@ class TrainPass:
         y = tnn.conv2d(x, _hwio(w), self.t.get(f"{key}/b"), stride=stride,
                        padding=k // 2 if pad is None else pad, groups=groups)
         if f"{key}/bn/gamma" in self.t:
-            y32 = y.float()
-            mean = y32.mean(dim=(0, 1, 2))
-            var = y32.var(dim=(0, 1, 2), unbiased=False)
+            mean, var = self.batch_stats(y.float())
             self.stats[key] = (mean, var)
             scale = self.t[f"{key}/bn/gamma"] * torch.rsqrt(var + BN_EPS)
             y = y * scale.to(y.dtype) + (self.t[f"{key}/bn/beta"]
@@ -237,13 +261,14 @@ def layer_train(lay, tp: TrainPass, x, key: str):
 
 
 def train_forward(model: "Y.YoloModel", tensors: Dict[str, Tensor],
-                  x: Tensor) -> Tuple[Union[List[Tensor], Tensor],
-                                      Dict[str, Tensor]]:
+                  x: Tensor, group=None
+                  ) -> Tuple[Union[List[Tensor], Tensor], Dict[str, Tensor]]:
     """``YoloModel.apply(params, x, decode=False, train=True)``: the raw
     Detect logits per level, (B, na, ny, nx, 5+nc), and the new running
     statistics ({``<key>/bn/mean|var``: tensor}, no gradient) of every
-    conv's batch norm."""
-    tp = TrainPass(tensors)
+    conv's batch norm.  ``group``: batch statistics over every rank's
+    ``x`` (each rank runs this with its own)."""
+    tp = TrainPass(tensors, group)
     saved: Dict[int, object] = {}
     n = len(model.layers)
     y = x

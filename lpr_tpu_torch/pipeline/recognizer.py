@@ -26,10 +26,23 @@ frozen step is one XLA executable with the weights as constants) the
 device step runs on a card as one CUDA graph, captured at the first call
 of each input shape and replayed after the inputs are copied from pinned
 host memory into its static buffers.
+
+With a ``mesh`` (:func:`lpr_tpu_torch.parallel.mesh.make_mesh`),
+``PlateRecognizer(..., mesh=)`` returns a :class:`ShardedRecognizer`: one
+plain recognizer on each mesh device (its models, K1, K3 and K2 packs and,
+with ``freeze_params``, its CUDA graphs; a repeated device holds separate
+replicas).  The frame batch (and the letterboxed frames) is split on the
+leading axis, each replica's step is issued in turn with its card as the
+current device, and the outputs are concatenated on the first device, as
+the JAX recognizer's sharded step returns one global batch.  A batch that
+does not divide by the mesh's size raises, as JAX's sharded ``jit`` does
+(:func:`~lpr_tpu_torch.parallel.mesh.pad_to_multiple` pads one).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -100,6 +113,17 @@ def _batch_shape(frames) -> Tuple[int, ...]:
     return tuple(int(n) for n in frames.shape)
 
 
+def _concat(trees: Sequence[Any], device: torch.device):
+    """Step outputs (dicts of tensors) of the replicas, concatenated on
+    the leading axis on ``device``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _concat([t[k] for t in trees], device) for k in first}
+    if first is None:
+        return None
+    return torch.cat([t.to(device) for t in trees], 0)
+
+
 def _clone(tree):
     """A copy of a step output (dicts of tensors), on the same stream."""
     if isinstance(tree, dict):
@@ -144,7 +168,7 @@ class _Staged:
         write(host)
         self.device.copy_(host, non_blocking=True)
         self._done[i] = torch.cuda.Event()
-        self._done[i].record()
+        self._done[i].record(torch.cuda.current_stream(self.device.device))
 
 
 @dataclasses.dataclass
@@ -293,11 +317,20 @@ class PlateRecognizer:
     frame batch.  The models are moved to ``device`` and cast to
     ``cfg.dtype`` in place."""
 
+    def __new__(cls, *args, mesh=None, **kwargs):
+        """A :class:`ShardedRecognizer` over ``mesh`` where one is given
+        (the module docstring), else a plain recognizer."""
+        if mesh is not None:
+            return ShardedRecognizer(*args, mesh=mesh, **kwargs)
+        return super().__new__(cls)
+
     def __init__(self, plate_model: YoloModel, char_model: YoloModel,
                  lpsr_model: LPSR, cfg: PipelineConfig = PipelineConfig(),
                  plate_class_ids: Sequence[int] = PLATE_CLASS_IDS,
                  char_names: Optional[Sequence[str]] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
+        """``mesh`` is taken by :meth:`__new__`, which then returns a
+        :class:`ShardedRecognizer`."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.char_names = char_names
@@ -632,8 +665,11 @@ class PlateRecognizer:
         on a side stream, then one run captured with ``torch.cuda.graph``.
         The kernels' launch counts move only at capture; the counts the
         graph holds are recorded for its replays and the capture's own
-        are taken back.  Any failure raises.  The kernels' launchers go to
-        the capturing stream (``torch.cuda.current_stream()``), and what
+        are taken back.  Any failure raises.  The capture runs on a side
+        stream of this recognizer's device (``torch.cuda.graph``'s own
+        default is one stream made on whichever card was current at its
+        first use).  The kernels' launchers go to the capturing stream
+        (``torch.cuda.current_stream()``), and what
         they call at every launch, ``cudaFuncSetAttribute`` and K2's
         cluster launch, captures (checked on an H100)."""
         dev = self.device
@@ -653,7 +689,7 @@ class PlateRecognizer:
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=side):
                 out = self._device_step(fr.device, None if pk is None
                                         else pk.device)
         finally:
@@ -692,3 +728,83 @@ class PlateRecognizer:
                 })
             results.append(plates)
         return results
+
+
+def _on(device: torch.device):
+    """``device`` as the current card, for a card; nothing on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class ShardedRecognizer:
+    """:class:`PlateRecognizer` over a mesh (the module docstring), as
+    ``PlateRecognizer(..., mesh=)`` builds it: ``replicas`` holds one plain
+    recognizer a mesh device, the first with the models passed in and the
+    others with deep copies; ``device`` (the constructor's is not used) is
+    the first mesh device, where the outputs are gathered."""
+
+    def __init__(self, plate_model: YoloModel, char_model: YoloModel,
+                 lpsr_model: LPSR, cfg: PipelineConfig = PipelineConfig(),
+                 plate_class_ids: Sequence[int] = PLATE_CLASS_IDS,
+                 char_names: Optional[Sequence[str]] = None,
+                 device: DeviceLike = None, mesh=None):
+        self.mesh = mesh
+        self.cfg = cfg
+        self.char_names = char_names
+        models = _copies((plate_model, char_model, lpsr_model),
+                         len(mesh.devices))
+        self.replicas = [
+            PlateRecognizer(*m, cfg=cfg, plate_class_ids=plate_class_ids,
+                            char_names=char_names, device=d)
+            for m, d in zip(models, mesh.devices)]
+        self.device = self.replicas[0].device
+
+    def replace_models(self, plate_model: Optional[YoloModel] = None,
+                       char_model: Optional[YoloModel] = None,
+                       lpsr_model: Optional[LPSR] = None) -> None:
+        """:meth:`PlateRecognizer.replace_models` on every replica, each
+        with a copy."""
+        models = _copies((plate_model, char_model, lpsr_model),
+                         len(self.replicas))
+        for rep, m in zip(self.replicas, models):
+            rep.replace_models(*m)
+
+    def step_raw(self, frames, packed=None, run=None) -> Dict[str, Any]:
+        """:meth:`PlateRecognizer.step_raw` of each replica on its share."""
+        return self._sharded("step_raw", frames, packed, run)
+
+    def step_eager(self, frames, packed=None, run=None) -> Dict[str, Any]:
+        """:meth:`PlateRecognizer.step_eager` of each replica on its
+        share."""
+        return self._sharded("step_eager", frames, packed, run)
+
+    def _sharded(self, method: str, frames, packed, run) -> Dict[str, Any]:
+        """``method`` of each replica on its share of the batch, issued in
+        turn with the replica's card current; the outputs concatenated on
+        the first device."""
+        from lpr_tpu_torch.parallel.mesh import split_batch
+
+        n = len(self.replicas)
+        shares = zip(split_batch(frames, n), [None] * n if packed is None
+                     else split_batch(packed, n))
+        outs = []
+        for rep, (f, p) in zip(self.replicas, shares):
+            with _on(rep.device):
+                outs.append(getattr(rep, method)(f, p, run))
+        return _concat(outs, self.device)
+
+    def host_letterbox(self, frames, out=None) -> Optional[np.ndarray]:
+        return self.replicas[0].host_letterbox(frames, out)
+
+    def recognize(self, frames) -> List[List[Dict[str, Any]]]:
+        return self.assemble(to_host(self.step_raw(frames)))
+
+    def assemble(self, out: Dict[str, Any]) -> List[List[Dict[str, Any]]]:
+        return self.replicas[0].assemble(out)
+
+
+def _copies(models: Tuple[Any, ...], n: int) -> List[Tuple[Any, ...]]:
+    """``models`` for the first replica and deep copies for the other
+    ``n - 1`` (before any replica moves or casts them in place)."""
+    return [models] + [copy.deepcopy(models) for _ in range(n - 1)]

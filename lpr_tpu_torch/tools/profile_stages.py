@@ -52,9 +52,10 @@ Stage = Tuple[str, Callable[[], object]]
 
 
 def build_recognizer(device, dtype=torch.bfloat16, det_hw=DET_HW,
-                     fused_mid=False, **cfg_kw):
-    """The production recognizer on the repo's checkpoints; ``cfg_kw`` are
-    further :class:`PipelineConfig` fields."""
+                     fused_mid=False, mesh=None, **cfg_kw):
+    """The production recognizer on the repo's checkpoints, sharded over
+    ``mesh`` where one is given; ``cfg_kw`` are further
+    :class:`PipelineConfig` fields."""
     from lpr_tpu_torch.models.lpsr import load_lpsr
     from lpr_tpu_torch.models.yolo import (load_char_ocr_npz,
                                            load_plate_detector)
@@ -69,7 +70,7 @@ def build_recognizer(device, dtype=torch.bfloat16, det_hw=DET_HW,
                   device=device),
         PipelineConfig(det_hw=det_hw, dtype=dtype, fused_mid=fused_mid,
                        **cfg_kw),
-        char_names=names, device=device)
+        char_names=names, device=device, mesh=mesh)
 
 
 def stage_split(rec, frames) -> Tuple[dict, List[Stage]]:

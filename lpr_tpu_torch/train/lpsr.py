@@ -13,7 +13,15 @@ go through autograd on the plain module, as the JAX step differentiates
 :meth:`LPSRTrainer.validate` packs the current weights once and runs the
 evaluator's route: K2's float32 instance (``lpsr_fused``) for the
 production configuration (its plain version on the CPU), ``LPSR.forward``
-for any other.  Data parallelism is not ported yet.
+for any other.
+
+With a ``mesh`` (:func:`lpr_tpu_torch.parallel.mesh.make_mesh`: one local
+device, and the process group of the other ranks) each rank steps on its
+local batch and the gradients are averaged over the ranks in one flat
+all-reduce a step, with the loss, before Adam: the step of one process on
+the global batch (equal local batches).  :meth:`LPSRTrainer.validate`
+gathers every rank's per-image PSNRs, so every rank returns the same mean
+and takes the same plateau decision.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from torch.func import functional_call
 from lpr_tpu_torch.device import DeviceLike, resolve_device
 from lpr_tpu_torch.models.lpsr import LPSR, LPSRConfig, lpsr_init
 from lpr_tpu_torch.ops import nn as tnn
+from lpr_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -66,6 +75,16 @@ def leaves(state, device, dtype=torch.float32) -> Dict[str, Tensor]:
             for k, v in state.items()}
 
 
+def mesh_group(mesh):
+    """The process group of a trainer's mesh; a mesh of more than one
+    local device raises (one process drives one device)."""
+    if mesh.size != 1:
+        raise ValueError(f"a trainer runs on one device a process, not "
+                         f"{mesh.size}: launch one process a device "
+                         f"(WORLD_SIZE, RANK, COORDINATOR_ADDRESS)")
+    return mesh.group
+
+
 class LPSRTrainer:
     """The trainer; its state is a dict of ``params`` (the flat leaves),
     ``opt`` (``torch.optim.Adam`` over them), ``lr_scale``, ``best_psnr``
@@ -73,10 +92,15 @@ class LPSRTrainer:
 
     def __init__(self, cfg: LPSRTrainConfig = LPSRTrainConfig(),
                  lpsr_cfg: LPSRConfig = LPSRConfig(),
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
+        """``mesh``: data parallelism over its process group, on its one
+        device (which ``device`` then does not name)."""
         self.cfg = cfg
         self.lpsr_cfg = lpsr_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh_group(mesh)
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices[0])
         self.model: Optional[LPSR] = None
 
     # ------------------------------------------------------------------
@@ -122,8 +146,16 @@ class LPSRTrainer:
         loss = self.loss(state["params"], lr_img, hr_img)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if self.group is not None:
+            ps = [p for p in state["params"].values() if p.grad is not None]
+            got = collectives.average([p.grad for p in ps] + [loss],
+                                      self.group)
+            for p, g in zip(ps, got):
+                p.grad = g
+            loss = got[-1]
         opt.step()
-        return state, loss.detach()
+        return state, loss
 
     @torch.no_grad()
     def validate(self, state: Dict, batches: Iterable) -> float:
@@ -144,7 +176,10 @@ class LPSRTrainer:
             pred = (lpsr_fused(x.contiguous(), packed) if packed is not None
                     else self.model(x.to(self.cfg.compute_dtype)))
             vals.append(psnr(torch.clamp(pred.float(), 0.0, 1.0), hr))
-        return float(torch.cat(vals).mean()) if vals else float("nan")
+        if not vals:
+            return float("nan")
+        return float(collectives.all_gather_cat(torch.cat(vals),
+                                                self.group).mean())
 
     def plateau_update(self, state: Dict, val_psnr: float) -> Dict:
         """ReduceLROnPlateau(mode=max): after more than ``plateau_patience``

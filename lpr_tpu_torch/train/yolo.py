@@ -18,8 +18,18 @@ one flag back from the device, once a step.
 :func:`validate_map` loads the EMA weights into the serving
 :class:`~lpr_tpu_torch.models.yolo.YoloModel` (batch norm folded), decodes
 and runs :func:`~lpr_tpu_torch.ops.nms.nms_batched` per class
-(``agnostic=False``, as the JAX validation), in float32.  Data parallelism
-is not ported yet: ``YoloTrainer(mesh=...)`` raises.
+(``agnostic=False``, as the JAX validation), in float32.
+
+With a ``mesh`` (one local device and the process group of the other
+ranks) the step is JAX's sharded step over the global batch: the batch
+statistics and the loss's positive count are the global batch's
+(``train_forward`` and ``yolo_loss`` with the group), micro-batch j of a
+step is the union of every rank's micro-batch j, and the gradients, the
+loss and its components are averaged over the ranks in one flat
+all-reduce a step.  The non-finite guard reads its flag after that
+all-reduce, so every rank takes the same branch.  :func:`fit_yolo`
+validates the whole set on every rank, as JAX's does, so early stopping
+agrees across ranks.
 """
 
 from __future__ import annotations
@@ -34,15 +44,12 @@ import torch
 from lpr_tpu_torch.device import DeviceLike, resolve_device
 from lpr_tpu_torch.models.yolo import YoloModel
 from lpr_tpu_torch.models.yolo_train import train_forward, yolo_init
-from lpr_tpu_torch.train.lpsr import as_device
+from lpr_tpu_torch.parallel import collectives
+from lpr_tpu_torch.train.lpsr import as_device, mesh_group
 from lpr_tpu_torch.train.yolo_loss import YoloLossConfig, yolo_loss
 from lpr_tpu_torch.utils.guards import all_finite
 
 Tensor = torch.Tensor
-
-NOT_PORTED = ("data-parallel detector training is not ported yet: it comes "
-              "with the port of lpr_tpu/parallel (ROADMAP section 1, item "
-              "7); run on one card")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,15 +104,18 @@ class YoloTrainer:
         """``model``: a built :class:`YoloModel` (its plan; the training
         route does not need it loaded).  ``accumulate``: micro-batches
         summed per optimizer step (pass ``accumulate * b`` images to
-        :meth:`step`; the reference takes it as nominal_batch / batch)."""
-        if mesh is not None:
-            raise NotImplementedError(NOT_PORTED)
+        :meth:`step`; the reference takes it as nominal_batch / batch).
+        ``mesh``: data parallelism over its process group, on its one
+        device (which ``device`` then does not name)."""
         self.model = model
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh_group(mesh)
         self.cfg = cfg
         self.loss_cfg = loss_cfg
         self.steps_per_epoch = steps_per_epoch
         self.accumulate = max(int(accumulate), 1)
-        self.device = resolve_device(device)
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices[0])
         self.anchors = torch.from_numpy(
             np.asarray(model.anchors, np.float32)).to(self.device)
         self.warmup_steps = max(round(cfg.warmup_epochs * steps_per_epoch),
@@ -137,9 +147,11 @@ class YoloTrainer:
              labels: Tensor):
         """(total, components, new running statistics) of one batch."""
         raws, stats = train_forward(self.model, params,
-                                    images.to(self.cfg.compute_dtype))
+                                    images.to(self.cfg.compute_dtype),
+                                    self.group)
         raws = [r.float() for r in raws]
-        total, comps = yolo_loss(raws, labels, self.anchors, self.loss_cfg)
+        total, comps = yolo_loss(raws, labels, self.anchors, self.loss_cfg,
+                                 self.group)
         return total, comps, stats
 
     def grads(self, params: Dict[str, Tensor], images: Tensor,
@@ -197,6 +209,12 @@ class YoloTrainer:
         params, momenta, ema = state["params"], state["momenta"], state["ema"]
         step = int(state["step"])
         grads, total, comps, stats = self.grads(params, images, labels)
+        if self.group is not None:
+            got = collectives.average([*grads.values(), total,
+                                       *comps.values()], self.group)
+            grads = dict(zip(grads, got))
+            total = got[len(grads)]
+            comps = dict(zip(comps, got[len(grads) + 1:]))
         ok = bool(all_finite([total, *grads.values()]))
         state = dict(state, step=step + 1)
         if not ok:

@@ -97,14 +97,23 @@ def build_targets_level(labels: Tensor, anchors: Tensor,
 
 
 def yolo_loss(raws: Sequence[Tensor], labels: Tensor, anchors: Tensor,
-              cfg: YoloLossConfig = YoloLossConfig()
+              cfg: YoloLossConfig = YoloLossConfig(), group=None
               ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """(total loss * batch size (the reference's scaling, loss.py:166),
     {"box", "obj", "cls"}) for the per-level logits raws (B, na, ny, nx,
     5+nc), labels (B, T, 5) and anchors (nl, na, 2) in grid units, in
-    float32 (float64 for float64 logits, a reference's)."""
+    float32 (float64 for float64 logits, a reference's).
+
+    ``group``: this rank's share of the loss of the global batch (every
+    rank's equal local batch), whose mean over the ranks is JAX's sharded
+    loss (``lpr_tpu/train/yolo_loss.py:144,155,167``): the positive count
+    is the global one (all-reduced) over the ranks, and the batch size the
+    global one; the ``.mean()`` terms need nothing."""
+    from lpr_tpu_torch.parallel.collectives import all_reduce_sum, world_size
+
     nl = len(raws)
     balance = _BALANCE[nl]
+    world = world_size(group)
     B = raws[0].shape[0]
     nc = raws[0].shape[-1] - 5
     cp = 1.0 - 0.5 * cfg.label_smoothing
@@ -123,7 +132,8 @@ def yolo_loss(raws: Sequence[Tensor], labels: Tensor, anchors: Tensor,
         gi, gj, tbox, tcls, mask = (t["gi"], t["gj"], t["tbox"], t["cls"],
                                     t["mask"])                # (B, na, T, 5)
         w = mask.to(dt)
-        n_pos = torch.clamp_min(w.sum(), 1.0)
+        n_pos = w.sum() if group is None else all_reduce_sum(w.sum(), group)
+        n_pos = torch.clamp_min(n_pos, 1.0) / world
 
         # predictions at the candidate cells: ps (B, na, T, 5, no)
         a_idx = torch.arange(na, device=dev)[None, :, None, None]
@@ -159,5 +169,5 @@ def yolo_loss(raws: Sequence[Tensor], labels: Tensor, anchors: Tensor,
     lbox = lbox * cfg.box
     lobj = lobj * cfg.obj
     lcls = lcls * cfg.cls
-    total = (lbox + lobj + lcls) * B
+    total = (lbox + lobj + lcls) * (B * world)
     return total, {"box": lbox, "obj": lobj, "cls": lcls}

@@ -148,3 +148,21 @@ def test_the_walk_covers_the_weights_and_export_modules():
             "lpr_tpu_torch.weights.export_torch",
             "lpr_tpu_torch.weights.export_program",
             "lpr_tpu_torch.cli.export"} <= names
+
+
+def test_the_walk_covers_the_parallel_config_and_utility_modules():
+    """The import probe above also walks the mesh, the process group and
+    its collectives, the config files, autobatch and observability, and
+    the autobatch tool, so none of them may import jax, lpr_tpu or PIL."""
+    import pkgutil
+
+    import lpr_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(lpr_tpu_torch.__path__,
+                                                   "lpr_tpu_torch.")}
+    assert {"lpr_tpu_torch.config", "lpr_tpu_torch.parallel.mesh",
+            "lpr_tpu_torch.parallel.multiproc",
+            "lpr_tpu_torch.parallel.collectives",
+            "lpr_tpu_torch.utils.autobatch",
+            "lpr_tpu_torch.utils.observability",
+            "lpr_tpu_torch.tools.validate_autobatch"} <= names

@@ -80,19 +80,20 @@ def test_train_lpsr_cli_writes_registry_and_resumes(tmp_path, capsys):
         "latest")["path"]
 
 
-@pytest.mark.parametrize("how", ["flag", "env"])
-def test_train_lpsr_refuses_data_parallel(tmp_path, monkeypatch, how):
-    """--data-parallel (or WORLD_SIZE above 1) raises, naming the ROADMAP
-    item that ports it, before any run is opened."""
+@pytest.mark.parametrize("world", [None, "1"])
+def test_train_lpsr_data_parallel_needs_the_env(tmp_path, monkeypatch,
+                                                world):
+    """--data-parallel without WORLD_SIZE above 1 raises, naming the env
+    contract, before any run is opened (WORLD_SIZE=2:
+    tests/test_torch_parallel.py)."""
     from lpr_tpu_torch.cli.train_lpsr import main
 
-    args = _lpsr_args(tmp_path)
-    if how == "flag":
-        args.append("--data-parallel")
+    if world is None:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
     else:
-        monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="item 7"):
-        main(args)
+        monkeypatch.setenv("WORLD_SIZE", world)
+    with pytest.raises(SystemExit, match="one process a card"):
+        main(_lpsr_args(tmp_path) + ["--data-parallel"])
     assert not os.path.exists(tmp_path / "runs")
 
 

@@ -2,7 +2,8 @@
 package's, on the CPU: ``cli/train_yolo`` end to end for one epoch on a
 small PNG tree (with ``--autoanchor``, ``--evolve 1`` and ``--hyp``; the
 run registry, ``results.csv``, ``hyp_evolve.yaml`` as ``yaml.safe_dump``
-writes it), ``--data-parallel`` and ``WORLD_SIZE`` raising, and the
+writes it), ``--data-parallel`` refused without ``WORLD_SIZE`` above 1
+(``WORLD_SIZE=2`` is ``tests/test_torch_parallel.py``'s), and the
 utilities ``evolve`` (mutation and CSV under a seed), ``kmeans_anchors``
 and ``check_anchors``, ``StepGuard``, ``auto_resume_latest``, the loggers
 and the hook registry, each equal to the JAX module's; and
@@ -14,6 +15,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from lpr_tpu.utils import autoanchor as jaa
@@ -87,15 +89,24 @@ def test_hyp_yaml_equals_safe_dump():
         assert text == yaml.safe_dump({"fitness": fit, "hyp": hyp})
 
 
-def test_data_parallel_raises_naming_the_roadmap_item(tree, monkeypatch):
+@pytest.mark.parametrize("world", [None, "1"])
+def test_data_parallel_needs_the_env(tree, monkeypatch, world):
+    """--data-parallel without WORLD_SIZE above 1 raises, naming the env
+    contract, before any run is opened."""
     imd, lbd, root = tree
-    args = ["--img-dir", imd, "--label-dir", lbd, "--nc", "3",
-            "--device", "cpu"]
-    with pytest.raises(SystemExit, match="item 7"):
-        train_yolo.main(args + ["--data-parallel"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="item 7"):
-        train_yolo.main(args)
+    if world is None:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("WORLD_SIZE", world)
+    with pytest.raises(SystemExit, match="one process a card"):
+        train_yolo.main([
+            "--img-dir", imd, "--label-dir", lbd, "--nc", "3",
+            "--arch", "yolov5n", "--imgsz", "64", "--batch-size", "4",
+            "--epochs", "1", "--workers", "0",
+            "--ckpt-dir", str(root / "dp"),
+            "--runs-dir", str(root / "dp_runs"), "--device", "cpu",
+            "--data-parallel"])
+    assert not os.path.exists(root / "dp_runs")
 
 
 def test_evolve_mutation_and_csv_match_jax(tmp_path):

@@ -213,18 +213,23 @@ def test_gradients_reach_every_leaf_as_in_jax(name):
     assert np.linalg.norm(g64[key]) > 0
 
 
-def _check_step(tm, flat, x, lab, js_state, t_state, t_trainer, step0):
+def _check_step(tm, flat, x, lab, js_state, t_state, t_trainer, step0,
+                grads=None):
     """One step's state on both sides within the bounds of the module
     docstring, given each side's gradients (JAX's from value_and_grad),
     and the trainer's gradient against the float64 one of its
-    micro-batches."""
+    micro-batches.  ``grads``: the port's gradient of the step where it
+    was not this trainer's (numpy, by key), else ``t_trainer.grads``."""
     lr_w, lr_b, mom = t_trainer.rates(step0)
     wd = t_trainer.cfg.weight_decay
     d = t_trainer.cfg.ema_decay * (1 - np.exp(-(step0 + 1)
                                               / t_trainer.cfg.ema_tau))
-    g_t, _, _, _ = t_trainer.grads(
-        tt.YoloTrainer.init(t_trainer, params=flat)["params"],
-        torch.from_numpy(x), torch.from_numpy(lab))
+    if grads is None:
+        g_t, _, _, _ = t_trainer.grads(
+            tt.YoloTrainer.init(t_trainer, params=flat)["params"],
+            torch.from_numpy(x), torch.from_numpy(lab))
+    else:
+        g_t = {k: torch.from_numpy(v) for k, v in grads.items()}
     acc = t_trainer.accumulate
     g64 = [_grads(tm, flat, xi, li, torch.float64)
            for xi, li in zip(np.split(x, acc), np.split(lab, acc))]
@@ -355,12 +360,6 @@ def test_non_finite_batch_changes_nothing_but_the_step():
     for part, ref in before.items():
         for k, v in ref.items():
             assert torch.equal(st[part][k].detach(), v), (part, k)
-
-
-def test_mesh_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.YoloTrainer(ty.build_yolo(_t_spec(tiny_spec()), strides=(8,)),
-                       mesh=object(), device="cpu")
 
 
 def _val_batches():

@@ -2,9 +2,10 @@
 repo's checkpoints loaded into the JAX package's models.
 
 ``lpr_tpu.weights.checkpoint.load_params`` fills a parameter pytree built by
-the model's ``init``; run eagerly, ``init`` dispatches op by op and
-dominated these tests' time, so it runs under ``jit`` here.  Loaded once
-per process and shared read-only."""
+the model's ``init`` and reads only its structure, shapes and dtypes, so
+the tree here is zeros of ``init``'s abstract result (``jax.eval_shape``):
+running ``init``, eagerly or compiled, dominated these tests' time.
+Loaded once per process and shared read-only."""
 
 import functools
 
@@ -22,7 +23,9 @@ LPSR = "checkpoints/lpsr_synth_glare/best_model.npz"
 
 
 def _load(path, init):
-    return load_params(path, jax.jit(init)(jax.random.PRNGKey(0)))
+    like = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                  jax.eval_shape(init, jax.random.PRNGKey(0)))
+    return load_params(path, like)
 
 
 @functools.lru_cache(maxsize=None)
