@@ -37,6 +37,16 @@ current device, and the outputs are concatenated on the first device, as
 the JAX recognizer's sharded step returns one global batch.  A batch that
 does not divide by the mesh's size raises, as JAX's sharded ``jit`` does
 (:func:`~lpr_tpu_torch.parallel.mesh.pad_to_multiple` pads one).
+
+Each step leaves a :class:`StepTrace` in ``last_step``: the host times of
+its phases, and the stage stamps of its device step (a row of int64
+nanoseconds, one stamp before the first of :data:`DEVICE_STAGES` and one
+after each).  On a card the stamps are kernels on the step's stream
+(``kernels/stamp.py``): captured into the graph in the frozen step, so
+every replay writes them, and launched between the stages in the eager
+one; either way they time the stages as the card ran them.  On the CPU
+they are ``time.perf_counter_ns()``.  The serving layer copies them to the
+host with the outputs and sums each stage's time (``serve/server.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +62,7 @@ import torch
 
 from lpr_tpu_torch.device import DeviceLike, resolve_device
 from lpr_tpu_torch.kernels.lpsr import lpsr_fused, lpsr_kernel_takes, lpsr_pack
+from lpr_tpu_torch.kernels.stamp import calibrate, stamp
 from lpr_tpu_torch.models.lpsr import LPSR
 from lpr_tpu_torch.models.yolo import YoloModel
 from lpr_tpu_torch.ops import image as im
@@ -70,6 +82,10 @@ STEP_STAGES = ("host letterbox", "upload", "letterbox+norm",
                "plate detector", "plate NMS", "top plates",
                "crop/deskew geometry", "LPSR", "OCR canvases", "char OCR",
                "char NMS")
+# The stages a CUDA graph captures, each ended by a stamp (after one at
+# the start): the stamps of a step are N_STAMPS times.
+DEVICE_STAGES = STEP_STAGES[2:]
+N_STAMPS = len(DEVICE_STAGES) + 1
 
 # Eager runs of the device step on a side stream before a capture (cuDNN,
 # cuBLAS and the kernels' libraries initialise outside the graph).
@@ -78,6 +94,46 @@ GRAPH_WARMUP = 2
 
 def _call(name: str, fn, *args):
     return fn(*args)
+
+
+@dataclasses.dataclass
+class StepTrace:
+    """What a step leaves in ``last_step``: ``phases``, (name, start, end)
+    in ``perf_counter_ns`` of its host phases (``staging``, ``replay`` or
+    ``capture``, ``clone`` in the frozen step; ``staging``, ``replay`` in
+    the eager one, whose replay is the stages' launches), and ``stamps``,
+    an int64 tensor (replicas, 1 + :data:`N_STAMPS`) whose column 0 is the
+    offset from its clock to ``perf_counter_ns`` (:func:`stamp_times`)."""
+
+    phases: Tuple[Tuple[str, int, int], ...]
+    stamps: Optional[Tensor]
+
+
+def stamp_times(stamps) -> Tuple[np.ndarray, np.ndarray]:
+    """(the stamps in ``perf_counter_ns`` (R, N_STAMPS), each device
+    stage's time in ns (R, len(DEVICE_STAGES))) of a fetched stamps array
+    (:class:`StepTrace`)."""
+    a = np.asarray(stamps, dtype=np.int64)
+    t = a[:, 1:] - a[:, :1]
+    return t, np.diff(t, axis=1)
+
+
+class _Stamper:
+    """The ``run`` hook of a stamped device step: a stamp into ``buf``'s
+    slot 1 before the first of :data:`DEVICE_STAGES`, and into slot 2 + i
+    after stage i, around the hook it wraps (:func:`stamp`: a kernel on a
+    card tensor, the host clock on a CPU one)."""
+
+    def __init__(self, buf: Tensor, run: Callable = None):
+        self.buf, self.run = buf, run or _call
+
+    def __call__(self, name: str, fn, *args):
+        i = DEVICE_STAGES.index(name)
+        if i == 0:
+            stamp(self.buf, 1)
+        out = self.run(name, fn, *args)
+        stamp(self.buf, 2 + i)
+        return out
 
 
 def _kernel_counters():
@@ -174,14 +230,16 @@ class _Staged:
 @dataclasses.dataclass
 class _Graph:
     """One captured device step: its graph, static inputs (frames and, with
-    packed_input, the letterboxed frames), outputs, and the kernel launches
-    it holds (:func:`_kernel_counters` order)."""
+    packed_input, the letterboxed frames), outputs, the kernel launches it
+    holds (:func:`_kernel_counters` order) and its stamps buffer (column 0
+    the clock offset found at capture, the rest written by each replay)."""
 
     graph: Any
     frames: _Staged
     packed: Optional[_Staged]
     out: Dict[str, Any]
     launches: Tuple[int, ...]
+    stamps: Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,7 +337,9 @@ def start_to_host(tree) -> Callable[[], Dict[str, Any]]:
     one-deep pipeline) still gets this step's outputs as soon as it ends.
     The returned arrays own their memory, so the pinned blocks go back to
     PyTorch's host allocator and the next batch reuses them: allocating
-    new pinned memory would wait for the card to finish its work."""
+    new pinned memory would wait for the card to finish its work.  The
+    function's ``wait()`` waits for the copies alone (the serving layer
+    times the wait and the conversion apart)."""
     on_card = []
 
     def start(t):
@@ -302,11 +362,15 @@ def start_to_host(tree) -> Callable[[], Dict[str, Any]]:
         done = torch.cuda.Event()
         done.record()
 
-    def finish():
+    def wait():
         if done is not None:
             done.synchronize()
+
+    def finish():
+        wait()
         return own(to_host(copies)) if on_card else to_host(copies)
 
+    finish.wait = wait
     return finish
 
 
@@ -354,6 +418,14 @@ class PlateRecognizer:
             raise ValueError("packed_input feeds the fused front's uint8 "
                              "input: set fused_front as well")
         self._graphs: Dict[Tuple[int, ...], _Graph] = {}
+        # CUDA graphs captured (one a batch shape, again after
+        # replace_models); the card clock's offset to perf_counter_ns and
+        # its uncertainty (ns), found at the last capture or at the first
+        # eager step; the last step's phases and stamps
+        self.graph_captures = 0
+        self.clock_offset_ns = self.clock_uncertainty_ns = 0
+        self._clock_known = False
+        self.last_step: Optional[StepTrace] = None
         self.replace_models(plate_model, char_model, lpsr_model)
 
     def replace_models(self, plate_model: Optional[YoloModel] = None,
@@ -585,10 +657,32 @@ class PlateRecognizer:
         """:meth:`step_raw` with every stage launched from the host, as
         ``freeze_params=False`` runs it."""
         run = run or _call
+        t0 = time.perf_counter_ns()
         if packed is None:
             packed = run("host letterbox", self.host_letterbox, frames)
         x, pk = run("upload", self._upload_inputs, frames, packed)
-        return self._device_step(x, pk, run)
+        t1 = time.perf_counter_ns()
+        if not self._clock_known:
+            self._calibrate()
+        stamps = self._stamps()
+        out = self._device_step(x, pk, _Stamper(stamps, run))
+        self.last_step = StepTrace(
+            (("staging", t0, t1), ("replay", t1, time.perf_counter_ns())),
+            stamps)
+        return out
+
+    def _calibrate(self) -> None:
+        """:func:`calibrate` the device's clock against the host's."""
+        self.clock_offset_ns, self.clock_uncertainty_ns = calibrate(
+            self.device)
+        self._clock_known = True
+
+    def _stamps(self) -> Tensor:
+        """A stamps row on the device (:class:`StepTrace`): column 0 the
+        clock's offset, the rest for the step's stamps (a fill, so no
+        copy from the host waits for the step in flight)."""
+        return torch.full((1, 1 + N_STAMPS), self.clock_offset_ns,
+                          dtype=torch.int64, device=self.device)
 
     def _device_step(self, x: Tensor, pk: Optional[Tensor],
                      run: Callable = _call) -> Dict[str, Any]:
@@ -649,15 +743,26 @@ class PlateRecognizer:
         graph's static buffers, the graph replays on the current stream,
         the kernels it holds are added to their launch counts, and the
         outputs are copied out of the graph's pool."""
+        t0 = time.perf_counter_ns()
         key = _batch_shape(frames)
         g = self._graphs.get(key)
+        first = "staging"
         if g is None:
             g = self._graphs[key] = self._capture(frames, packed)
+            self.graph_captures += 1
+            first = "capture"
         else:
             self._load_inputs(g.frames, g.packed, frames, packed)
+        t1 = time.perf_counter_ns()
         g.graph.replay()
         _add_counts(g.launches)
-        return _clone(g.out)
+        t2 = time.perf_counter_ns()
+        out = _clone(g.out)
+        stamps = g.stamps.clone()
+        self.last_step = StepTrace(
+            ((first, t0, t1), ("replay", t1, t2),
+             ("clone", t2, time.perf_counter_ns())), stamps)
+        return out
 
     def _capture(self, frames, packed) -> _Graph:
         """Capture the device step for ``frames``' shape: static input
@@ -671,7 +776,10 @@ class PlateRecognizer:
         first use).  The kernels' launchers go to the capturing stream
         (``torch.cuda.current_stream()``), and what
         they call at every launch, ``cudaFuncSetAttribute`` and K2's
-        cluster launch, captures (checked on an H100)."""
+        cluster launch, captures (checked on an H100).  Before the capture
+        the card's clock is calibrated against the host's
+        (:func:`calibrate`), and the graph stamps each stage boundary into
+        its stamps buffer (:class:`_Stamper`)."""
         dev = self.device
         shape = _batch_shape(frames)
         fr = _Staged(shape, dev)
@@ -686,16 +794,18 @@ class PlateRecognizer:
                 self._device_step(fr.device, None if pk is None
                                   else pk.device)
         torch.cuda.current_stream(dev).wait_stream(side)
+        self._calibrate()
+        stamps = self._stamps()
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         try:
             with torch.cuda.graph(graph, stream=side):
                 out = self._device_step(fr.device, None if pk is None
-                                        else pk.device)
+                                        else pk.device, _Stamper(stamps))
         finally:
             held = tuple(a - b for a, b in zip(_counts(), before))
             _add_counts(tuple(-n for n in held))
-        return _Graph(graph, fr, pk, out, held)
+        return _Graph(graph, fr, pk, out, held, stamps)
 
     def recognize(self, frames) -> List[List[Dict[str, Any]]]:
         """frames: (B, H, W, 3) uint8 RGB.  Per-frame lists of plate dicts
@@ -759,6 +869,11 @@ class ShardedRecognizer:
                             char_names=char_names, device=d)
             for m, d in zip(models, mesh.devices)]
         self.device = self.replicas[0].device
+        self.last_step: Optional[StepTrace] = None
+
+    @property
+    def graph_captures(self) -> int:
+        return sum(r.graph_captures for r in self.replicas)
 
     def replace_models(self, plate_model: Optional[YoloModel] = None,
                        char_model: Optional[YoloModel] = None,
@@ -792,6 +907,11 @@ class ShardedRecognizer:
         for rep, (f, p) in zip(self.replicas, shares):
             with _on(rep.device):
                 outs.append(getattr(rep, method)(f, p, run))
+        traces = [rep.last_step for rep in self.replicas]
+        dev = traces[0].stamps.device
+        self.last_step = StepTrace(
+            tuple(ph for t in traces for ph in t.phases),
+            torch.cat([t.stamps.to(dev) for t in traces]))
         return _concat(outs, self.device)
 
     def host_letterbox(self, frames, out=None) -> Optional[np.ndarray]:

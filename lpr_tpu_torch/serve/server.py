@@ -26,21 +26,38 @@ only the indices leave the host.
 The collector is a daemon thread.  :meth:`InferenceServer.stop` shuts the
 decode pool down, joins the collector with a timeout and fails every
 request still queued, so no future is left unresolved.
+
+The server measures itself (``utils/observability.py`` says how to read
+it): counters in ``stats`` (:class:`ServerStats`) always, and spans in
+``tracer`` once ``tracer.enable()`` is called.  Each request gets an id at
+its enqueue and each batch one at its dispatch; a request's queue wait,
+the sub-phases of ``_dispatch`` and ``_resolve``, each device stage's time
+from the step's stamps, and the garbage collector's pauses while the
+server runs are summed into ``stats``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from lpr_tpu_torch.pipeline.recognizer import start_to_host
+from lpr_tpu_torch.pipeline.recognizer import (DEVICE_STAGES, start_to_host,
+                                               stamp_times)
+from lpr_tpu_torch.utils.observability import LogHistogram, Tracer, watch_gc
+
+# The sub-phases of a batch's dispatch and resolve (ServerStats
+# dispatch_phase_s / resolve_phase_s; the span children of "dispatch" and
+# "resolve").  A capture replaces "staging" on the first step of a shape.
+DISPATCH_PHASES = ("staging", "replay", "clone", "host copy start")
+RESOLVE_PHASES = ("copy wait", "host conversion", "assemble", "futures")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +95,24 @@ class ServerStats:
     collect_s: float = 0.0
     dispatch_s: float = 0.0
     resolve_s: float = 0.0
+    # Their sub-phases (s): DISPATCH_PHASES (and "capture"), RESOLVE_PHASES
+    dispatch_phase_s: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(DISPATCH_PHASES, 0.0))
+    resolve_phase_s: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(RESOLVE_PHASES, 0.0))
+    # Each request's wait from its enqueue to its batch's dispatch (s)
+    queue_wait: LogHistogram = dataclasses.field(default_factory=LogHistogram)
+    # Device time (s) of each DEVICE_STAGES stage and of the whole step
+    # (first stamp to last), summed over the batches whose stamps came back
+    stage_s: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(DEVICE_STAGES, 0.0))
+    step_device_s: float = 0.0
+    stamped_batches: int = 0
+    # Garbage-collection pauses (s) and collections by generation
+    gc_pause_s: Dict[int, float] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys((0, 1, 2), 0.0))
+    gc_collections: Dict[int, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys((0, 1, 2), 0))
 
     def record(self, latency_s: float) -> None:
         self.requests += 1
@@ -106,6 +141,26 @@ class ServerStats:
         dt = time.perf_counter() - self.started_s
         return self.requests / dt if dt > 0 else 0.0
 
+    def counters(self) -> dict:
+        """A snapshot of every counter (numbers, dicts of them and the
+        queue wait's bucket counts); two snapshots'
+        :func:`~lpr_tpu_torch.utils.observability.difference` is a
+        window's."""
+        return {
+            "requests": self.requests, "batches": self.batches,
+            "frames_padded": self.frames_padded,
+            "collect_s": self.collect_s, "dispatch_s": self.dispatch_s,
+            "resolve_s": self.resolve_s,
+            "dispatch_phase_s": dict(self.dispatch_phase_s),
+            "resolve_phase_s": dict(self.resolve_phase_s),
+            "queue_wait": list(self.queue_wait.counts),
+            "stage_s": dict(self.stage_s),
+            "step_device_s": self.step_device_s,
+            "stamped_batches": self.stamped_batches,
+            "gc_pause_s": dict(self.gc_pause_s),
+            "gc_collections": dict(self.gc_collections),
+        }
+
     def summary(self) -> dict:
         return {
             "requests": self.requests,
@@ -117,6 +172,21 @@ class ServerStats:
             "latency_ms_p50": round(self.latency_ms(50), 2),
             "latency_ms_p99": round(self.latency_ms(99), 2),
         }
+
+
+@dataclasses.dataclass
+class _Batch:
+    """A dispatched batch: its id, its queue items (frame, future, enqueue
+    time in ``perf_counter_ns``, request id), how many are real and how
+    many pad it, the fetch of its outputs (:func:`start_to_host`) and the
+    start of its dispatch (``perf_counter_ns``)."""
+
+    id: int
+    items: list
+    n: int
+    pad: int
+    fetch: Callable
+    t_dispatch: int
 
 
 class InferenceServer:
@@ -135,12 +205,28 @@ class InferenceServer:
             (*cfg.frame_hw, 3) if cfg.frame_hw is not None else None)
         self._decoder = None  # the decode thread pool, made at first use
         self._pool = None     # the device-resident frame pool (preload)
+        # spans, recorded once tracer.enable() is called
+        self.tracer = Tracer()
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
+        self._unwatch_gc: Optional[Callable[[], None]] = None
 
     def start(self) -> "InferenceServer":
+        self._unwatch_gc = watch_gc(self._on_gc)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="lpr-collector")
         self._thread.start()
         return self
+
+    def _on_gc(self, generation: int, t0: int, t1: int) -> None:
+        """A collection's pause, on whichever thread collected: summed by
+        generation; with spans on, a ``gc`` span for generations 1 and
+        2."""
+        st = self.stats
+        st.gc_pause_s[generation] += (t1 - t0) / 1e9
+        st.gc_collections[generation] += 1
+        if generation >= 1:
+            self.tracer.record("gc", t0, t1, generation, lane="gc")
 
     def stop(self, timeout: float = 30.0) -> None:
         """Shut the decode pool down (its queued work still submits), stop
@@ -155,6 +241,9 @@ class InferenceServer:
             if self._thread.is_alive():
                 raise RuntimeError(f"collector thread still running after "
                                    f"{timeout} s")
+        if self._unwatch_gc is not None:
+            self._unwatch_gc()
+            self._unwatch_gc = None
         self._drain()
 
     def _drain(self) -> None:
@@ -198,7 +287,8 @@ class InferenceServer:
 
     def _enqueue(self, item) -> Future:
         fut: Future = Future()
-        self._q.put((item, fut, time.perf_counter()))
+        self._q.put((item, fut, time.perf_counter_ns(),
+                     next(self._request_ids)))
         if self._stop.is_set():  # stop() may have drained before the put
             self._drain()
         return fut
@@ -284,13 +374,13 @@ class InferenceServer:
             try:
                 frames = native.load_letterbox_batch(list(chunk_paths), hw)
             except Exception as e:  # the futures carry it, not the pool
-                self._fail([(None, o, None) for o in chunk_outers], e)
+                self._fail([(None, o) for o in chunk_outers], e)
                 return
             for frame, outer in zip(frames, chunk_outers):
                 try:
                     inner = self.submit(frame)
                 except Exception as e:  # the future carries it
-                    self._fail([(None, outer, None)], e)
+                    self._fail([(None, outer)], e)
                     continue
                 self._forward(inner, outer)
 
@@ -405,16 +495,23 @@ class InferenceServer:
 
     @staticmethod
     def _fail(items, err: BaseException) -> None:
-        for _, fut, _ in items:
-            if not fut.done():
-                fut.set_exception(err)
+        for it in items:
+            if not it[1].done():
+                it[1].set_exception(err)
 
-    def _dispatch(self, items):
+    def _dispatch(self, items) -> Optional[_Batch]:
         """Pad the batch, launch its device step and start copying its
-        outputs to the host (:func:`start_to_host`: queued on the stream
-        before the next batch's step, so resolving this batch waits for
-        this batch alone).  Returns the pending (fetch, items, n, pad), or
-        None after failing the futures."""
+        outputs, and the step's stamps, to the host (:func:`start_to_host`:
+        queued on the stream before the next batch's step, so resolving
+        this batch waits for this batch alone).  Each request's queue wait
+        and the sub-phases (the step's own, from its ``last_step``, and
+        the copy's start) are counted.  Returns the batch, or None after
+        failing the futures."""
+        t0 = time.perf_counter_ns()
+        st = self.stats
+        for it in items:
+            st.queue_wait.add((t0 - it[2]) / 1e9)
+        bid = next(self._batch_ids)
         n = len(items)
         pad = self.cfg.max_batch - n
         try:
@@ -434,43 +531,100 @@ class InferenceServer:
                 out = self.rec.step_raw(batch)
             if not self.cfg.return_sr:
                 out = {k: v for k, v in out.items() if k != "sr"}
+            trace = getattr(self.rec, "last_step", None)
+            phases = []
+            if trace is not None and trace.phases and \
+                    trace.phases[0][1] >= t0:      # this step's own
+                phases = list(trace.phases)
+                if trace.stamps is not None:
+                    out = dict(out, stamps=trace.stamps)
+            t1 = time.perf_counter_ns()
             fetch = start_to_host(out)
+            phases.append(("host copy start", t1, time.perf_counter_ns()))
         except Exception as e:  # the collector must keep serving
             self._fail(items, e)
             return None
-        return fetch, items, n, pad
+        for name, a, b in phases:
+            st.dispatch_phase_s[name] = (st.dispatch_phase_s.get(name, 0.0)
+                                         + (b - a) / 1e9)
+        if self.tracer.enabled:
+            for name, a, b in phases:
+                self.tracer.record(name, a, b, bid, "dispatch")
+            self.tracer.record("dispatch", t0, time.perf_counter_ns(), bid)
+        return _Batch(bid, items, n, pad, fetch, t0)
 
-    def _resolve(self, pending) -> None:
+    def _resolve(self, b: _Batch) -> None:
         """Wait for a launched batch's outputs on the host, assemble them
-        and resolve its futures."""
-        fetch, items, n, pad = pending
+        and resolve its futures; sum its sub-phases and, where its step's
+        stamps came back, each device stage's time."""
+        st = self.stats
+        t0 = time.perf_counter_ns()
         try:
-            results = self.rec.assemble(fetch())
+            b.fetch.wait()
+            t1 = time.perf_counter_ns()
+            host = b.fetch()
+            t2 = time.perf_counter_ns()
+            stamps = host.pop("stamps", None)
+            results = self.rec.assemble(host)
         except Exception as e:  # the collector must keep serving
-            self._fail(items, e)
+            self._fail(b.items, e)
             return
-        now = time.perf_counter()
-        self.stats.batches += 1
-        self.stats.frames_padded += pad
-        for (_, fut, t0), res in zip(items, results[:n]):
-            self.stats.record(now - t0)
+        t3 = time.perf_counter_ns()
+        st.batches += 1
+        st.frames_padded += b.pad
+        on = self.tracer.enabled
+        for (_, fut, te, rid), res in zip(b.items, results[:b.n]):
+            st.record((t3 - te) / 1e9)
             fut.set_result(res)
+            if on:
+                self.tracer.record("request", te, time.perf_counter_ns(),
+                                   rid, lane="request")
+                self.tracer.record("queue", te, b.t_dispatch, rid,
+                                   "request", "request")
+        t4 = time.perf_counter_ns()
+        parts = (("copy wait", t0, t1), ("host conversion", t1, t2),
+                 ("assemble", t2, t3), ("futures", t3, t4))
+        for name, a, c in parts:
+            st.resolve_phase_s[name] += (c - a) / 1e9
+        if stamps is not None:
+            self._add_stamps(st, stamps, b.id)
+        if on:
+            for name, a, c in parts:
+                self.tracer.record(name, a, c, b.id, "resolve")
+            self.tracer.record("resolve", t0, time.perf_counter_ns(), b.id)
+
+    def _add_stamps(self, st: ServerStats, stamps, bid: int) -> None:
+        """Each device stage's time and the step's (first stamp to last),
+        summed over the stamp rows (one a replica); with spans on, a
+        ``step`` span a row with a child a stage, on the host clock."""
+        t, d = stamp_times(stamps)
+        st.stamped_batches += 1
+        st.step_device_s += float((t[:, -1] - t[:, 0]).sum()) / 1e9
+        for name, ns in zip(DEVICE_STAGES, d.sum(0).tolist()):
+            st.stage_s[name] += ns / 1e9
+        if self.tracer.enabled:
+            for row in t.tolist():
+                self.tracer.record("step", row[0], row[-1], bid,
+                                   lane="device")
+                for name, a, c in zip(DEVICE_STAGES, row, row[1:]):
+                    self.tracer.record(name, a, c, bid, "step", "device")
 
     def _loop(self) -> None:
         pending = None
-        st = self.stats
         while not self._stop.is_set():
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             items = self._collect(block=pending is None)
-            t1 = time.perf_counter()
+            t1 = time.perf_counter_ns()
             nxt = self._dispatch(items) if items else None
-            t2 = time.perf_counter()
+            t2 = time.perf_counter_ns()
             if pending is not None:
                 self._resolve(pending)
             st = self.stats     # a caller may have reset the stats
-            st.collect_s += t1 - t0
-            st.dispatch_s += t2 - t1
-            st.resolve_s += time.perf_counter() - t2
+            st.collect_s += (t1 - t0) / 1e9
+            st.dispatch_s += (t2 - t1) / 1e9
+            st.resolve_s += (time.perf_counter_ns() - t2) / 1e9
+            self.tracer.record("collect", t0, t1,
+                               None if nxt is None else nxt.id)
             pending = nxt
         if pending is not None:
             self._resolve(pending)
