@@ -9,7 +9,7 @@ Phases, each printing one line with its elapsed seconds:
    CUDA device.
 2. build   — every kernel in lpr_tpu_torch/csrc (yolo_front K1 with its
    uint8 instance and its K4 stage variants, lpsr K2, yolo_mid K3,
-   conv_int8 I1 and I2) built
+   conv_int8 I1 and I2, crop_geometry G1, the step's stamp) built
    with nvcc (one process per source, all started together), loaded with
    ctypes; prints nvcc's register / shared-memory / spill report and the
    HMMA (tensor-core mma) instructions by cuobjdump -sass in
@@ -44,6 +44,12 @@ Phases, each printing one line with its elapsed seconds:
    launch with a pack that is not bf16-exact must raise ValueError, and
    beside it the model's own layers 3-4 in bf16 through cuDNN, the
    composed library yardstick (its library_ms).
+   G1 at the served shapes (32 frames of 720x1280 and of 1080x1920, 16 of
+   720x1280, three plate slots from the frames' own panels, empty slots
+   as zero boxes), bf16 and float32, against its plain version in float32
+   (crop_geometry.crop_errors), timed as CUDA graphs of repeated launches
+   beside its bound (crop_work) and the plain version in bf16, the
+   interpolation-matrix route the step took before G1.
 4. probe   — K4, K1's four stage variants (dma, stem, down, full; one
    instance each of the K1 source): the probe tool's timing of them at
    (8, 736, 1280, 3) (K4's path, with its launch counts), then each
@@ -129,7 +135,7 @@ Phases, each printing one line with its elapsed seconds:
    (tests/pt_fixture.py: a pickled Model of stand-in classes) and read
    back by load_yolo_torch without running pickled code: K1's pack and
    output, and the recognizer's eager step, equal to the npz detector's
-   bit for bit (the step launches K1 once and K2 once, no other kernel);
+   bit for bit (the step launches K1, K2 and G1 once each, no other kernel);
    char_ocr_synth.npz the same way
    through load_char_detector, its detections on 8 plate crops equal to
    the npz's; LPSR emitted as ONNX and loaded back, K2 float32 (64 crops)
@@ -648,14 +654,14 @@ def export_phase(card, counts_to_zero, counts):
         x = torch.rand((BATCH, *DET_HW, 3), device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(
                            SEED)).to(torch.bfloat16)
-        # the step's own launches: K1 once, K2 once, nothing else
+        # the step's own launches: K1, K2 and G1 once, nothing else
         counts_to_zero()
         got = rec.step_eager(frames)
         torch.cuda.synchronize()
         c = {k: v for k, v in counts().items() if v}
-        if c != {"yolo_front": 1, "lpsr": 1}:
+        if c != {"yolo_front": 1, "lpsr": 1, "plate_crops": 1}:
             raise AssertionError(f"the .pt detector's step launched {c}, "
-                                 f"not K1 once and K2 once")
+                                 f"not K1, K2 and G1 once each")
         if not same(got, want):
             raise AssertionError("the recognizer's step with the .pt "
                                  "detector differs from the npz's")
@@ -1764,6 +1770,78 @@ def phase(name: str, t_start: float, note: str = "") -> None:
           f"(total {time.perf_counter() - _T0:.2f} s){note}", flush=True)
 
 
+# G1's shapes: the served batches (closed cells 32, camera cells 16) and
+# frame sizes (720p, and 1080p as the square deployment's frames), three
+# plate slots.
+G1_SHAPES = ((32, (720, 1280)), (32, (1080, 1920)), (16, (720, 1280)))
+G1_GRAPH_CALLS = 20
+
+
+def g1_row(card, timed):
+    """G1 (kernels/crop_geometry.py) at the served shapes on frames of
+    tools/synth.py with their panels' boxes (slots beyond a frame's
+    panels zero): bf16 and float32 against the plain version in float32
+    (crop_errors), then bf16 timed as CUDA graphs of repeated launches
+    (plain, kernel, kernel, plain) beside its bound.  Returns its kernels
+    entry, at the first shape."""
+    import numpy as np
+    import torch
+
+    from lpr_tpu_torch.kernels import crop_geometry as kg
+    from lpr_tpu_torch.tools import _timing
+    from lpr_tpu_torch.tools.synth import synth_frames
+
+    entry = None
+    for batch, hw in G1_SHAPES:
+        frames, labels = synth_frames(batch, hw, SEED, labels=True)
+        boxes = np.zeros((batch, 3, 4), np.float32)
+        for b, lab in enumerate(labels):
+            cx, cy, w, h = (lab[:3, 1:] * [hw[1], hw[0], hw[1], hw[0]]).T
+            boxes[b, :len(cx)] = np.stack([cx - w / 2, cy - h / 2,
+                                           cx + w / 2, cy + h / 2], -1)
+        x = torch.as_tensor(frames, device="cuda").to(torch.bfloat16) / 255.0
+        bx = torch.as_tensor(boxes, device="cuda")
+        errs = {}
+        for dt in (torch.bfloat16, torch.float32):
+            got = kg.plate_crops(x.to(dt), bx)
+            torch.cuda.synchronize()
+            errs[dt] = kg.crop_errors(got, x, bx)
+            same, d_angle, n_band, d_crop = errs[dt]
+            print(f"G1 plate_crops vs plate_crops_plain float32 "
+                  f"({batch}, {hw[0]}, {hw[1]}, 3) "
+                  f"{str(dt).replace('torch.', '')}: is_long equal {same}, "
+                  f"angle err / {kg.TOL_ANGLE} {d_angle} (< 1) outside the "
+                  f"ill-conditioned band ({n_band} of {batch * 3} slots in "
+                  f"it), crops at G1's angle err / (abs {kg.TOL_ABS} + rel "
+                  f"{kg.TOL_REL[dt]}) {d_crop} (< 1), {int(got[2].sum())} "
+                  f"long", flush=True)
+            if not (same and d_angle < 1 and d_crop < 1):
+                raise AssertionError(f"G1 disagrees with its plain version "
+                                     f"at {(batch, *hw)} {dt}")
+        k_ms, plain_ms, runs = timed(
+            lambda: kg.plate_crops(x, bx), lambda: kg.plate_crops_plain(x, bx),
+            G1_GRAPH_CALLS, graphed=True)
+        work = kg.crop_work(bx, hw)
+        bound_ms, bound_by = _timing.bound_ms(work)
+        print(f"G1 timing at ({batch}, {hw[0]}, {hw[1]}, 3), 3 slots, bf16 "
+              f"on {card}: kernel {k_ms:.4f} ms, plain (the interpolation "
+              f"matrices in bf16) {plain_ms:.4f} ms (runs plain, kernel, "
+              f"kernel, plain {runs}), bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{work} FLOP, B)", flush=True)
+        if entry is None:
+            entry = {
+                "name": "plate_crops", "route": "cuda",
+                "source": "lpr_tpu_torch/csrc/crop_geometry.cu",
+                "replaces": "none (lpr_tpu/ops/resample.py, no Pallas "
+                            "kernel)",
+                "launches": None, "max_abs_err": None,
+                "err_over_tol": errs[torch.bfloat16][3], "ms": k_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+            }
+    return entry
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import numpy as np
@@ -1792,6 +1870,7 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     from lpr_tpu_torch.kernels import _build
     from lpr_tpu_torch.kernels import conv_int8 as ki
+    from lpr_tpu_torch.kernels import crop_geometry as kg
     from lpr_tpu_torch.kernels import lpsr as kl
     from lpr_tpu_torch.kernels import yolo_front as kf
     from lpr_tpu_torch.kernels import yolo_mid as km
@@ -1803,9 +1882,11 @@ def main() -> int:
         if name != "conv_int8":    # its 54 kernels: one line each below
             for line in lib.ptxas_log:
                 print(f"nvcc[{name}]: {line}", flush=True)
-    if sorted(libs) != ["conv_int8", "lpsr", "yolo_front", "yolo_mid"]:
+    if sorted(libs) != ["conv_int8", "crop_geometry", "lpsr", "stamp",
+                        "yolo_front", "yolo_mid"]:
         raise AssertionError(f"built {sorted(libs)}")
-    smem = {n: getattr(libs[n].cdll, f"lpr_{n}_smem_bytes")() for n in libs}
+    smem = {n: getattr(libs[n].cdll, f"lpr_{n}_smem_bytes")() for n in libs
+            if hasattr(libs[n].cdll, f"lpr_{n}_smem_bytes")}
     # The tensor cores in K2: HMMA instructions of lpsr_kernel<bf16> (with
     # the stage functions it calls) and of lpsr_kernel<float>.
     hmma = _build.sass_counts(libs["lpsr"].path, "HMMA")
@@ -1910,6 +1991,7 @@ def main() -> int:
         ki.act_amax.launches = 0
         ki.quantize_act.launches = 0
         ki.conv_int8.launches = 0
+        kg.plate_crops.launches = 0
 
     def counts():
         return {"yolo_front": kf.yolo_front.launches,
@@ -1918,7 +2000,8 @@ def main() -> int:
                 "yolo_mid": km.yolo_mid.launches,
                 "act_amax": ki.act_amax.launches,
                 "quantize_act": ki.quantize_act.launches,
-                "conv_int8": ki.conv_int8.launches}
+                "conv_int8": ki.conv_int8.launches,
+                "plate_crops": kg.plate_crops.launches}
 
     def timed(kernel, plain, iters, graphed=False):
         """(kernel ms, plain ms, runs) over turns plain, kernel, kernel,
@@ -2175,6 +2258,7 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": k3_lib_ms,
     })
+    kernels.append(g1_row(card, timed))
     phase("kernels", t)
 
     # ---- 4. probe -------------------------------------------------------
@@ -2651,6 +2735,9 @@ def main() -> int:
         if min(c[k] for k in need) < 1:
             raise AssertionError(f"the {label} slice did not launch "
                                  f"{need}: {c}")
+        if c["plate_crops"] != 1:
+            raise AssertionError(f"the {label} step launched G1 "
+                                 f"{c['plate_crops']} times, not once")
         check_outputs(o)
         if not identical(o, r.step_eager(frames)):
             raise AssertionError(f"{label}: the graph's outputs differ "
@@ -2769,8 +2856,9 @@ def main() -> int:
         srv.stop(timeout=60)
     serve_counts = counts()
     print(f"serve stats: {json.dumps(srv.stats.summary())}", flush=True)
-    if serve_counts["yolo_front"] < 1 or serve_counts["lpsr"] < 1:
-        raise AssertionError(f"the server did not launch K1 and K2: "
+    if min(serve_counts[k] for k in ("yolo_front", "lpsr",
+                                     "plate_crops")) < 1:
+        raise AssertionError(f"the server did not launch K1, K2 and G1: "
                              f"{serve_counts}")
 
     def key(res):
@@ -2963,6 +3051,7 @@ def main() -> int:
     by_name["act_amax"]["launches"] = int8_counts["act_amax"]
     by_name["quantize_act"]["launches"] = int8_counts["quantize_act"]
     by_name["conv_int8"]["launches"] = int8_counts["conv_int8"]
+    by_name["plate_crops"]["launches"] = slice_counts["plate_crops"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

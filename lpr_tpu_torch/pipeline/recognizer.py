@@ -7,7 +7,8 @@ detector (layers 0-2 through the K1 kernel, and layers 3-4 through K3 when
 int8 through kernels I1 and I2), lazy-decode NMS (or, with
 ``lazy_decode=False``, the whole grid decoded and ``nms_batched``), the top
 plates by area, per-plate
-skew estimate and rotated crops (interpolation matrices), the 2-row ->
+skew estimate and rotated crops (kernel G1 on a card, its plain version's
+interpolation matrices on the CPU), the 2-row ->
 1-row reshape, LPSR (for the production configuration the K2 kernel on a
 card and its plain version on the CPU; any other configuration runs
 ``LPSR.forward``), the char OCR on the raw crop and on the SR canvas, and
@@ -61,6 +62,7 @@ import numpy as np
 import torch
 
 from lpr_tpu_torch.device import DeviceLike, resolve_device
+from lpr_tpu_torch.kernels.crop_geometry import compose_crops, plate_crops
 from lpr_tpu_torch.kernels.lpsr import lpsr_fused, lpsr_kernel_takes, lpsr_pack
 from lpr_tpu_torch.kernels.stamp import calibrate, stamp
 from lpr_tpu_torch.models.lpsr import LPSR
@@ -68,7 +70,6 @@ from lpr_tpu_torch.models.yolo import YoloModel
 from lpr_tpu_torch.ops import image as im
 from lpr_tpu_torch.ops.boxes import clip_boxes
 from lpr_tpu_torch.ops.nms import nms_batched, nms_from_raw
-from lpr_tpu_torch.ops.resample import crop_rotated_fast, plate_tile
 from lpr_tpu_torch.pipeline.chars import detections_to_string
 
 Tensor = torch.Tensor
@@ -138,10 +139,11 @@ class _Stamper:
 
 def _kernel_counters():
     """(function, attribute) of every launch count the device step can
-    move: K1's bf16 and uint8 instances, K3, K2, and with int8_detector I1
-    (its max pass and its quantize) and I2."""
+    move: K1's bf16 and uint8 instances, K3, K2, with int8_detector I1
+    (its max pass and its quantize) and I2, and G1."""
     from lpr_tpu_torch.kernels.conv_int8 import (act_amax, conv_int8,
                                                  quantize_act)
+    from lpr_tpu_torch.kernels.crop_geometry import plate_crops
     from lpr_tpu_torch.kernels.lpsr import lpsr_fused
     from lpr_tpu_torch.kernels.yolo_front import yolo_front
     from lpr_tpu_torch.kernels.yolo_mid import yolo_mid
@@ -149,7 +151,7 @@ def _kernel_counters():
     return ((yolo_front, "launches"), (yolo_front, "launches_u8"),
             (yolo_mid, "launches"), (lpsr_fused, "launches"),
             (act_amax, "launches"), (quantize_act, "launches"),
-            (conv_int8, "launches"))
+            (conv_int8, "launches"), (plate_crops, "launches"))
 
 
 def _counts() -> Tuple[int, ...]:
@@ -256,8 +258,10 @@ class PipelineConfig:
     long_aspect: float = 1.5
     deskew: bool = True
     dtype: torch.dtype = torch.bfloat16
-    # Crops through interpolation-matrix products (ops/resample.py); False
-    # takes the gather-based reference sampler (ops/image.py crop_rotated).
+    # Crops through kernel G1 on a card (kernels/crop_geometry.py), through
+    # its plain version's interpolation-matrix products (ops/resample.py) on
+    # the CPU; False takes the gather-based reference sampler (ops/image.py
+    # crop_rotated).
     fast_geometry: bool = True
     tile_hw: Tuple[int, int] = (64, 256)
     # OCR on both the raw crop and the SR output (reference parity); False
@@ -469,38 +473,20 @@ class PlateRecognizer:
 
     # ------------------------------------------------------------------
     def _per_plate(self, x: Tensor, boxes: Tensor):
-        """Device-side geometry for every plate (B, P) of frames x."""
+        """Device-side geometry for every plate (B, P) of frames x: G1
+        (:func:`plate_crops`; its plain version on the CPU), or without
+        ``fast_geometry`` the gather-based sampler."""
         cfg = self.cfg
-        B, P = boxes.shape[:2]
-        # width clamped like the height: the JAX step divides by the raw
-        # width, which gives NaN crops in empty (zero-box) plate slots
-        w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=1.0)
-        h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=1.0)
-        sh, sw = cfg.sr_hw
+        shapes = dict(sr_hw=cfg.sr_hw, ocr_hw=cfg.ocr_hw,
+                      long_aspect=cfg.long_aspect, deskew=cfg.deskew)
         if cfg.fast_geometry:
-            tile, geom = plate_tile(x, boxes, cfg.tile_hw)
-
-            def crop(angle, out_hw, **kw):
-                return crop_rotated_fast(x, boxes, angle, out_hw, tile=tile,
-                                         tile_geom=geom, **kw)
+            crops = plate_crops(x, boxes, tile_hw=cfg.tile_hw, **shapes)
         else:
             def crop(angle, out_hw, **kw):
                 return im.crop_rotated(x, boxes, angle, out_hw, **kw)
 
-        zero = torch.zeros((B, P), dtype=torch.float32, device=x.device)
-        gray = im.rgb_to_gray(crop(zero, (32, 96)).float())
-        aspect = (w / 96.0) / (h / 32.0)
-        angle = im.estimate_skew_angle(gray, max_abs_deg=15.0,
-                                       pixel_aspect=aspect)
-        if not cfg.deskew:
-            angle = angle * 0.0
-        is_long = (w / h) > cfg.long_aspect
-        full = crop(angle, (sh, sw))
-        top = crop(angle, (sh, sw // 2), v_range=(-0.5, 0.0))
-        bot = crop(angle, (sh, sw // 2), v_range=(0.0, 0.5))
-        two_row = torch.cat([top, bot], dim=-2)
-        long_img = torch.where(is_long[..., None, None, None], full, two_row)
-        ocr_orig = crop(angle, cfg.ocr_hw, square=True, mask_outside=True)
+            crops = compose_crops(crop, boxes, **shapes)
+        long_img, ocr_orig, is_long, _ = crops
         return long_img, ocr_orig, is_long
 
     def _sr_to_ocr_canvas(self, sr: Tensor, is_long: Tensor) -> Tensor:
